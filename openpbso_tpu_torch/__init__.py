@@ -1,0 +1,20 @@
+"""openpbso_tpu_torch — the PyTorch/CUDA port of openpbso_tpu for NVIDIA Hopper.
+
+The JAX package ``openpbso_tpu`` is the reference; this package mirrors its
+module layout, so every counterpart sits at the same relative path. It
+imports ``torch`` and never ``jax``; the reference's jax-free modules
+(``config``, ``io``, ``utils.synth``, ``utils.oracle``,
+``models.modal_model``) are imported rather than copied.
+
+Ported so far: the per-block modal step (``runtime.session.ModalSession``
+-> ``runtime.solver.step_block`` -> ``ops.integrator`` backends), with the
+fused per-block kernel of heterogeneous banks written in CUDA for sm_90a
+(``csrc/fused_block.cu``, wrapped by ``ops.fused_integrator``).
+
+Importing the package applies the float32 precision pin (``precision``).
+"""
+from . import config, precision  # noqa: F401  (precision pins on import)
+from .config import (DEFAULT_BLOCK, FRAMES_PER_BUFFER, MODAL_GAIN,
+                     OUTPUT_SCALE, SAMPLE_RATE, UNIT_TRANSFER)
+
+__version__ = "0.1.0"

@@ -1,0 +1,60 @@
+"""Carry the JAX package's bank, state and FFAT maps across to the port.
+
+Each function takes an object whose fields can be read with ``np.asarray``
+(for example a JAX ``ModalBank``, ``SolverState`` or ``FFATMaps`` after
+``jax.tree.map(np.asarray, x)``) and returns the port's counterpart on the
+chosen device, dtypes unchanged. This module does not import jax, so both
+packages can compute from identical float32 tables.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .ops.coeffs import ModalBank
+from .ops.ffat import DeviceFFAT, FFATMaps
+from .ops.forces import ForceSlots, SustainedState
+from .runtime.state import SolverState
+
+
+def _t(x, device) -> torch.Tensor | None:
+    return None if x is None else torch.as_tensor(np.array(x)).to(device)
+
+
+def bank_from_numpy(src, device=None) -> ModalBank:
+    return ModalBank(**{name: _t(getattr(src, name), device) for name in (
+        "lam_re", "lam_im", "b_re", "b_im", "mask", "pow_re", "pow_im")})
+
+
+def state_from_numpy(src, device=None) -> SolverState:
+    """A SolverState; the sustained channel must be inactive (the port
+    carries it as data only)."""
+    sus = src.sustained
+    if np.asarray(sus.active).any():
+        raise NotImplementedError(
+            "an active sustained channel is not ported yet (ROADMAP.md "
+            "Queue 1 item 2: the sustained channel)")
+    sl = src.slots
+    return SolverState(
+        z_re=_t(src.z_re, device),
+        z_im=_t(src.z_im, device),
+        slots=ForceSlots(*(_t(getattr(sl, n), device) for n in (
+            "ftype", "t0", "width", "amp", "space"))),
+        sustained=SustainedState(*(_t(getattr(sus, n), device) for n in (
+            "active", "space", "ar_hist", "a", "sigma", "mu"))),
+        transfer=_t(src.transfer, device),
+        block_start=int(np.asarray(src.block_start)),
+        transfer_im=_t(src.transfer_im, device),
+    )
+
+
+def ffat_from_numpy(src, device=None) -> FFATMaps:
+    g = src.geom
+    if getattr(g, "psi_c", None) is not None:
+        raise NotImplementedError(
+            "the compressed Psi texture is not ported yet (ROADMAP.md "
+            "Queue 1 item 4: Scene)")
+    geom = DeviceFFAT(**{name: _t(getattr(g, name), device) for name in (
+        "psi", "k", "center", "bbox_low", "bbox_top", "low_corners",
+        "n_elements", "strides", "mode_mask")})
+    return FFATMaps(geom=geom, cell_size=_t(src.cell_size, device))

@@ -1,0 +1,318 @@
+"""ModalSession — host-side control surface over the device solver.
+
+Counterpart of openpbso_tpu/runtime/session.py, per-block path only: hits
+become force-slot writes, listener moves become transfer recomputes, and
+``step``/``render`` advance the stream block by block, taking the cheaper
+homogeneous-only step while the scene is provably idle.
+
+Slot lifecycle is tracked on the host (a slot's productive lifetime is a
+pure function of its start sample, ops/forces.py), mirroring the
+reference's erase-on-exhaustion (modal_solver.h:210-221); when every slot
+of an object is busy the oldest is overwritten (the reference's force
+queue drops sends when full, modal_solver.h:330-333).
+
+Slot writes are deliberately in place: the session owns its state, and an
+indexed write into the existing slot tensors is the PyTorch form of the
+JAX package's donated scatter (openpbso_tpu/runtime/session.py:33-43),
+which also reused the buffers.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from ..config import REBASE_PERIOD, SAMPLE_RATE, UNIT_TRANSFER
+from ..ops.coeffs import ModalBank
+from ..ops.ffat import FFATMaps, compute_transfer
+from ..ops.forces import (FORCE_GAUSSIAN, FORCE_HERTZ, FORCE_POINT,
+                          slot_duration)
+from ..ops.integrator import resolve_backend_name
+from .solver import SolverConfig, decay_block, default_gains, step_block
+from .state import make_solver_state
+
+# ROADMAP.md Queue 1 items that carry what this session does not do yet
+_SPAN = "ROADMAP.md Queue 1 item 1: the chunked span"
+_SUSTAINED = "ROADMAP.md Queue 1 item 2: the sustained channel"
+_XFADE_QNORM = "ROADMAP.md Queue 1 item 3: xfade and qnorm"
+_SCENE = "ROADMAP.md Queue 1 item 4: Scene"
+
+
+def _not_ported(what: str, item: str):
+    raise NotImplementedError(f"{what} is not ported yet ({item})")
+
+
+class ModalSession:
+    """A batch of sounding objects driven block by block.
+
+    ``bank`` holds O objects x M modes on its device; ``ffat`` is optional
+    (unit transfer when absent or when ``use_transfer`` is off,
+    modal_solver.h:249-255). Every tensor the session creates lives on the
+    bank's device.
+    """
+
+    def __init__(
+        self,
+        bank: ModalBank,
+        ffat: FFATMaps | None = None,
+        config: SolverConfig | None = None,
+        num_slots: int = 16,
+        seed: int = 0,
+        dtype: torch.dtype = torch.float32,
+        lam64: np.ndarray | None = None,
+        num_listeners: int = 1,
+    ):
+        """``lam64`` (span tables) and ``num_listeners`` > 1 (shared-state
+        listener rows) are the JAX session's arguments for paths this port
+        does not have yet; they raise rather than being ignored."""
+        if lam64 is not None:
+            _not_ported("span tables from lam64", _SPAN)
+        if num_listeners != 1:
+            _not_ported("multi-listener sessions", _SCENE)
+        self.config = config or SolverConfig()
+        if self.config.smooth_transfer:
+            _not_ported("SolverConfig.smooth_transfer", _XFADE_QNORM)
+        if self.config.compute_qnorm:
+            _not_ported("SolverConfig.compute_qnorm", _XFADE_QNORM)
+        self.bank = bank
+        self.ffat = ffat
+        self.device = bank.device
+        o, m = bank.num_objects, bank.num_modes
+        # kept for the sustained channel's noise keys (not ported yet)
+        self.seed = int(seed)
+        self.state = make_solver_state(o, m, num_slots=num_slots,
+                                       dtype=dtype, device=self.device)
+        self.gains = default_gains(o, dtype, self.device)
+        self.use_transfer = ffat is not None
+        self._dtype = dtype
+        # host mirror for slot recycling: absolute expiry sample per slot
+        self._expiry = np.zeros((o, num_slots), np.int64)
+        self._t0 = np.zeros((o, num_slots), np.int64)
+        self._last_listener: np.ndarray | None = None
+        # host mirror of the sample clock, so the idle test never syncs
+        self._clock = 0
+        # device time origin: state.block_start == _clock - _clock_base
+        # (rebased periodically so the int32 slot clock never wraps)
+        self._clock_base = 0
+
+    # ------------------------------------------------------------ events
+
+    @property
+    def sample_clock(self) -> int:
+        """Host mirror of the absolute block clock (no device sync)."""
+        return self._clock
+
+    def _alloc_slot(self, obj: int) -> int:
+        now = self.sample_clock
+        free = np.nonzero(self._expiry[obj] <= now)[0]
+        if free.size:
+            return int(free[0])
+        return int(np.argmin(self._t0[obj]))  # overwrite the oldest
+
+    def hit(self, obj: int, space: np.ndarray, *,
+            kind: str = "point", width_us: float = 100.0,
+            amp: float = 1.0, when: int | None = None) -> None:
+        """Strike object ``obj`` with modal amplitudes ``space`` [M_audible].
+
+        ``kind``: 'point' (unit impulse), 'gaussian' (width in microseconds,
+        converted to samples as in forces.h:42-46), or 'hertz' (width =
+        contact duration in microseconds). The profile starts at the next
+        block, like a dequeued ForceMessage; ``when`` (an absolute,
+        block-aligned sample >= the current clock) schedules it later.
+        """
+        m = self.bank.num_modes
+        vec = np.zeros((m,), np.float64)
+        space = np.asarray(space, np.float64).ravel()
+        vec[: min(space.size, m)] = space[: m]
+        if kind == "point":
+            ftype, width = FORCE_POINT, 1.0
+        elif kind == "gaussian":
+            ftype = FORCE_GAUSSIAN
+            width = max(1, int(width_us / 1e6 * SAMPLE_RATE))
+        elif kind == "hertz":
+            ftype = FORCE_HERTZ
+            width = max(1, int(width_us / 1e6 * SAMPLE_RATE))
+        else:
+            raise ValueError(f"unknown force kind {kind!r}")
+        dur = slot_duration(ftype, width, self.config.block_size)
+        slot = self._alloc_slot(obj)
+        t0 = self.sample_clock
+        if when is not None:
+            if when < t0 or when % self.config.block_size:
+                raise ValueError(
+                    f"when={when} must be a block-aligned sample >= the "
+                    f"current clock {t0}")
+            t0 = int(when)
+        slots = self.state.slots
+        slots.ftype[obj, slot] = ftype
+        slots.t0[obj, slot] = t0 - self._clock_base  # origin-rebased
+        slots.width[obj, slot] = float(width)
+        slots.amp[obj, slot] = amp
+        slots.space[obj, slot] = torch.as_tensor(vec).to(self._dtype).to(
+            self.device)
+        self._t0[obj, slot] = t0
+        self._expiry[obj, slot] = t0 + dur
+
+    def clear_forces(self, obj: int | None = None) -> None:
+        """Drop all active forces (clearAllForces, modal_solver.h:186-189)."""
+        objs = np.arange(self.bank.num_objects) if obj is None else [obj]
+        objs = np.asarray(objs)
+        self.state.slots.ftype[torch.as_tensor(objs, device=self.device)] = 0
+        self._expiry[objs] = 0
+
+    def set_listener(self, pos: np.ndarray) -> None:
+        """Update the acoustic transfer for a listener at ``pos``: [3]
+        (shared) or [O, 3] per object, relative to each object's frame
+        (computeTransfer + the latest-wins trans queue,
+        modal_solver.h:286-300). A world-to-session listener frame arrives
+        with Scene."""
+        self.set_listener_relative(pos)
+
+    def set_listener_relative(self, pos: np.ndarray) -> None:
+        """set_listener in the session's native per-object frame."""
+        pos = np.asarray(pos, np.float64)
+        if pos.ndim == 3:
+            _not_ported("per-listener positions [L, O, 3]", _SCENE)
+        if pos.shape not in ((3,), (self.bank.num_objects, 3)):
+            raise ValueError(
+                f"expected a [3] or [{self.bank.num_objects}, 3] listener "
+                f"position, got {pos.shape}")
+        self._last_listener = pos
+        if self.ffat is None or not self.use_transfer:
+            return
+        p = torch.as_tensor(pos).to(self._dtype).to(self.device)
+        if p.dim() == 1:
+            p = p.expand(self.bank.num_objects, 3)
+        transfer = compute_transfer(self.ffat, p).to(self._dtype)
+        self.state = dataclasses.replace(self.state, transfer=transfer,
+                                         transfer_im=None)
+
+    def set_use_transfer(self, use: bool) -> None:
+        """Toggle FFAT transfer vs the 1E7 unit transfer
+        (modal_solver.h:249-255); re-enabling recomputes from the last
+        listener position at once."""
+        self.use_transfer = use and self.ffat is not None
+        if not use:
+            self.state = dataclasses.replace(
+                self.state,
+                transfer=torch.full_like(self.state.transfer, UNIT_TRANSFER),
+                transfer_im=None)
+        elif self._last_listener is not None:
+            self.set_listener_relative(self._last_listener)
+
+    # ------------------------------------------------- not ported (named)
+
+    def sustained_start(self, obj: int, space: np.ndarray) -> None:
+        _not_ported("sustained_start", _SUSTAINED)
+
+    def sustained_update(self, obj: int, space: np.ndarray) -> None:
+        _not_ported("sustained_update", _SUSTAINED)
+
+    def sustained_end(self, obj: int) -> None:
+        _not_ported("sustained_end", _SUSTAINED)
+
+    def set_ar_params(self, obj: int, *args, **kwargs) -> None:
+        _not_ported("set_ar_params", _SUSTAINED)
+
+    def qnorm_probe(self):
+        _not_ported("qnorm_probe", _XFADE_QNORM)
+
+    def set_complex_transfer(self, t: np.ndarray) -> None:
+        _not_ported("complex transfer rows", _SCENE)
+
+    def span_tables_for(self, n_blocks: int):
+        _not_ported("span tables", _SPAN)
+
+    def render_multi(self, num_blocks: int, blocks_per_dispatch: int = 16):
+        _not_ported("render_multi (span dispatch)", _SPAN)
+
+    # ------------------------------------------------------------- audio
+
+    def _maybe_rebase(self) -> None:
+        """Re-zero the device clock origin before int32 wrap of the slot
+        clock. The subtraction is quantized to whole multiples of
+        REBASE_PERIOD, so the device clock is always ``absolute clock mod
+        REBASE_PERIOD`` at a step, however the stream was chunked. Expired
+        slots' t0 is clamped (their producing predicate is false forever,
+        so the clamp changes no output)."""
+        delta = self._clock - self._clock_base
+        if delta >= REBASE_PERIOD:
+            sub = (delta // REBASE_PERIOD) * REBASE_PERIOD
+            t0 = self.state.slots.t0
+            t0.sub_(sub).clamp_(min=-(1 << 30))
+            self.state = dataclasses.replace(
+                self.state, block_start=self.state.block_start - sub)
+            self._clock_base += sub
+
+    def decay_eligible(self) -> bool:
+        """Whether this session can take the idle fast path: it needs the
+        lam-power tables of the block size and a table-form backend, so a
+        decay block is numerically the full step with zero excitation."""
+        if not self.config.decay_fast_path:
+            return False
+        if (self.bank.pow_re is None
+                or self.bank.pow_re.shape[-1] != self.config.block_size + 1):
+            return False
+        return resolve_backend_name(self.config.backend,
+                                    self.bank) in ("blocked", "fused")
+
+    def _idle(self) -> bool:
+        """True when the host mirror proves the excitation is exactly zero:
+        every force slot has expired (no sustained channel exists yet)."""
+        return bool((self._expiry <= self._clock).all())
+
+    def _slot_bucket(self) -> int | None:
+        """The smallest configured slot bucket covering every live slot
+        index (the host expiry mirror knows which slots can still
+        produce), or None for the full table."""
+        k = self.state.slots.num_slots
+        live = self._expiry > self._clock
+        need = (int(np.max(np.nonzero(live.any(axis=0))[0])) + 1
+                if live.any() else 1)
+        for b in sorted(set(self.config.slot_buckets)):
+            if need <= b < k:
+                return b
+        return None
+
+    def _step_decay(self):
+        """The homogeneous-only block (see solver.decay_block)."""
+        self.state, sound, mix, qnorm = decay_block(
+            self.state, self.bank, self.gains,
+            block_size=self.config.block_size)
+        self._clock += self.config.block_size
+        return sound, mix, qnorm
+
+    def _step_full(self, num_slots: int | None | str = "auto"):
+        """The host-gated full block step."""
+        if num_slots == "auto":
+            num_slots = self._slot_bucket()
+        self.state, sound, mix, qnorm = step_block(
+            self.state, self.bank, self.gains,
+            block_size=self.config.block_size,
+            backend=self.config.backend,
+            num_slots=num_slots)
+        self._clock += self.config.block_size
+        return sound, mix, qnorm
+
+    def step(self):
+        """Synthesize one block: (sound [O, S] raw, mix [S, 2] output-scaled
+        stereo, qnorm None), as device tensors.
+
+        While the scene is provably idle (all slots expired) and the
+        backend is table-form, the cheaper homogeneous-only decay step runs
+        instead: the same output at about half the device work.
+        """
+        self._maybe_rebase()
+        if self._idle() and self.decay_eligible():
+            return self._step_decay()
+        return self._step_full()
+
+    def render(self, num_blocks: int) -> np.ndarray:
+        """Offline render: [num_blocks * S, 2] stereo float32 (each block
+        is copied to the host as it completes)."""
+        out = []
+        for _ in range(num_blocks):
+            _, mix, _ = self.step()
+            out.append(mix.cpu().numpy())
+        return np.concatenate(out, axis=0)
