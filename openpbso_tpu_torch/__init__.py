@@ -9,7 +9,12 @@ imports ``torch`` and never ``jax``; the reference's jax-free modules
 Ported so far: the per-block modal step (``runtime.session.ModalSession``
 -> ``runtime.solver.step_block`` -> ``ops.integrator`` backends), with the
 fused per-block kernel of heterogeneous banks written in CUDA for sm_90a
-(``csrc/fused_block.cu``, wrapped by ``ops.fused_integrator``).
+(``csrc/fused_block.cu``, wrapped by ``ops.fused_integrator``); and the
+chunked span (``ModalSession.render_multi`` -> ``runtime.solver.step_span``
+-> ``ops.span``), whose chunk-state scan and within-chunk Toeplitz
+convolution are CUDA kernels too (``csrc/chunk_scan.cu``,
+``csrc/toeplitz_conv.cu``, wrapped by ``ops.chunk_scan`` and
+``ops.toeplitz_conv``).
 
 Importing the package applies the float32 precision pin (``precision``).
 """

@@ -1,10 +1,10 @@
-"""Carry the JAX package's bank, state and FFAT maps across to the port.
+"""Carry the JAX package's bank, state, FFAT maps and span tables across.
 
 Each function takes an object whose fields can be read with ``np.asarray``
-(for example a JAX ``ModalBank``, ``SolverState`` or ``FFATMaps`` after
-``jax.tree.map(np.asarray, x)``) and returns the port's counterpart on the
-chosen device, dtypes unchanged. This module does not import jax, so both
-packages can compute from identical float32 tables.
+(for example a JAX ``ModalBank``, ``SolverState``, ``FFATMaps`` or
+``ChunkSpanTables`` after ``jax.tree.map(np.asarray, x)``) and returns the
+port's counterpart on the chosen device, dtypes unchanged. This module does
+not import jax, so both packages can compute from identical float32 tables.
 """
 from __future__ import annotations
 
@@ -14,6 +14,7 @@ import torch
 from .ops.coeffs import ModalBank
 from .ops.ffat import DeviceFFAT, FFATMaps
 from .ops.forces import ForceSlots, SustainedState
+from .ops.span import ChunkSpanTables
 from .runtime.state import SolverState
 
 
@@ -58,3 +59,13 @@ def ffat_from_numpy(src, device=None) -> FFATMaps:
         "psi", "k", "center", "bbox_low", "bbox_top", "low_corners",
         "n_elements", "strides", "mode_mask")})
     return FFATMaps(geom=geom, cell_size=_t(src.cell_size, device))
+
+
+def span_tables_from_numpy(src, device=None) -> ChunkSpanTables:
+    """A JAX ``ChunkSpanTables`` as the port's. Its superchunk powers
+    (``s_re``/``s_im``) are dropped: the port runs the single-level
+    chunk scan, which the JAX package holds equal to the superchunk form
+    to <= -100 dB (tests/test_span.py)."""
+    return ChunkSpanTables(b_re=_t(src.b_re, device),
+                           b_im=_t(src.b_im, device),
+                           n_chunks=int(src.n_chunks))

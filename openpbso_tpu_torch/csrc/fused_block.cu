@@ -329,7 +329,8 @@ int fused_block_step(
   return (int)cudaGetLastError();
 }
 
-const char* fused_block_error_string(int err) {
+// The message of a cudaError_t returned by any entry point of the library.
+const char* cuda_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 

@@ -1,4 +1,4 @@
-"""Contact-force excitation — force-slot tables (the per-block half).
+"""Contact-force excitation — force-slot tables, per block and per span.
 
 Counterpart of the slot half of openpbso_tpu/ops/forces.py. Forces are
 data: a fixed-size table of typed records per object, and each block's
@@ -179,3 +179,36 @@ def force_block(slots: ForceSlots, block_start: int, block_size: int
     space = (slots.space * producing[..., None].to(slots.space.dtype)).sum(
         dim=1)
     return time_profile, space
+
+
+def force_span(slots: ForceSlots, block_start: int, n_samples: int,
+               block_size: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per-slot excitation over a span of many blocks (ops/span.py):
+    (f_k [O, K, N] per-slot effective profiles, space_k [O, K, M]).
+
+    Slot membership changes per block inside a span, and the excitation of
+    each block is the rank-1 product of the summed profiles and the summed
+    amplitudes of its producing slots (modal_solver.h:206-221). Per slot:
+
+        Q[m, n] = sum_k space_k[m] * (time_total[n] * member_k(block(n)))
+
+    with member_k the producing predicate evaluated at the start of the
+    block holding sample n. The profiles and the predicate are those of
+    force_block, so each block of the span reproduces force_block exactly.
+    """
+    local0 = block_start - slots.t0                       # [O, K] int32
+    is_point, is_gauss, is_hertz, w = _slot_kinds(slots)
+    dur = _slot_duration_table(is_point, is_gauss, is_hertz, w)
+    t_local = local0[..., None] + torch.arange(
+        n_samples, dtype=torch.int32, device=local0.device)   # [O, K, N]
+    # t0 is block-aligned, so flooring the local time to a block multiple
+    # gives the local time at the start of the sample's block
+    t_block = torch.div(t_local, block_size, rounding_mode="floor") \
+        * block_size
+    member = (t_block >= 0) & (t_block < dur[..., None])
+    prof = _slot_profile(t_local, is_point, is_gauss, is_hertz, w,
+                         slots.amp.dtype)
+    prof = prof * member * slots.amp[..., None]
+    time_total = prof.sum(dim=1)                          # [O, N]
+    f_k = time_total[:, None, :] * member.to(prof.dtype)
+    return f_k, slots.space

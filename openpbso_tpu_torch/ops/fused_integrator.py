@@ -143,9 +143,7 @@ def _launch(z_re, z_im, bank, space, time_profile, transfer, chunk):
             z_re_out.data_ptr(), z_im_out.data_ptr(), sound.data_ptr(),
             hom_part.data_ptr(), g_part.data_ptr(),
             o, m, s, chunk, tm, stream)
-    if err != 0:
-        raise RuntimeError("fused_block_step failed: "
-                           + lib.fused_block_error_string(err).decode())
+    _build.check(err, "fused_block_step")
     return z_re_out, z_im_out, sound
 
 

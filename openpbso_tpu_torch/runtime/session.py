@@ -1,9 +1,11 @@
 """ModalSession — host-side control surface over the device solver.
 
-Counterpart of openpbso_tpu/runtime/session.py, per-block path only: hits
-become force-slot writes, listener moves become transfer recomputes, and
-``step``/``render`` advance the stream block by block, taking the cheaper
-homogeneous-only step while the scene is provably idle.
+Counterpart of openpbso_tpu/runtime/session.py: hits become force-slot
+writes, listener moves become transfer recomputes, ``step``/``render``
+advance the stream block by block, and ``render_multi`` advances it many
+blocks per dispatch, through the chunked span when the session holds the
+float64 eigenvalues (``lam64``). Both take the cheaper homogeneous-only
+step while the scene is provably idle.
 
 Slot lifecycle is tracked on the host (a slot's productive lifetime is a
 pure function of its start sample, ops/forces.py), mirroring the
@@ -29,11 +31,13 @@ from ..ops.ffat import FFATMaps, compute_transfer
 from ..ops.forces import (FORCE_GAUSSIAN, FORCE_HERTZ, FORCE_POINT,
                           slot_duration)
 from ..ops.integrator import resolve_backend_name
-from .solver import SolverConfig, decay_block, default_gains, step_block
+from ..ops.span import build_span_tables, choose_radix
+from .solver import (SolverConfig, decay_block, decay_span_step,
+                     default_gains, step_block, step_multi, step_span,
+                     step_span_sound)
 from .state import make_solver_state
 
 # ROADMAP.md Queue 1 items that carry what this session does not do yet
-_SPAN = "ROADMAP.md Queue 1 item 1: the chunked span"
 _SUSTAINED = "ROADMAP.md Queue 1 item 2: the sustained channel"
 _XFADE_QNORM = "ROADMAP.md Queue 1 item 3: xfade and qnorm"
 _SCENE = "ROADMAP.md Queue 1 item 4: Scene"
@@ -63,11 +67,14 @@ class ModalSession:
         lam64: np.ndarray | None = None,
         num_listeners: int = 1,
     ):
-        """``lam64`` (span tables) and ``num_listeners`` > 1 (shared-state
-        listener rows) are the JAX session's arguments for paths this port
-        does not have yet; they raise rather than being ignored."""
-        if lam64 is not None:
-            _not_ported("span tables from lam64", _SPAN)
+        """``lam64``: the float64 complex eigenvalues the bank was built
+        from (lambda_from_modes), [M] or [O, M]. Optional; with it the
+        session builds span tables (ops/span.py) and render_multi takes the
+        chunked span instead of the block-by-block loop.
+
+        ``num_listeners`` > 1 (shared-state listener rows) is the JAX
+        session's argument for a path this port does not have yet; it
+        raises rather than being ignored."""
         if num_listeners != 1:
             _not_ported("multi-listener sessions", _SCENE)
         self.config = config or SolverConfig()
@@ -78,6 +85,9 @@ class ModalSession:
         self.bank = bank
         self.ffat = ffat
         self.device = bank.device
+        self._lam64 = (None if lam64 is None
+                       else np.atleast_2d(np.asarray(lam64, np.complex128)))
+        self._span_cache: dict[int, object] = {}   # chunk size -> tables
         o, m = bank.num_objects, bank.num_modes
         # kept for the sustained channel's noise keys (not ported yet)
         self.seed = int(seed)
@@ -221,13 +231,7 @@ class ModalSession:
     def set_complex_transfer(self, t: np.ndarray) -> None:
         _not_ported("complex transfer rows", _SCENE)
 
-    def span_tables_for(self, n_blocks: int):
-        _not_ported("span tables", _SPAN)
-
-    def render_multi(self, num_blocks: int, blocks_per_dispatch: int = 16):
-        _not_ported("render_multi (span dispatch)", _SPAN)
-
-    # ------------------------------------------------------------- audio
+    # ----------------------------------------------------------- gating
 
     def _maybe_rebase(self) -> None:
         """Re-zero the device clock origin before int32 wrap of the slot
@@ -275,6 +279,82 @@ class ModalSession:
                 return b
         return None
 
+    # ------------------------------------------------------------- span
+
+    def span_tables_for(self, n_blocks: int):
+        """ChunkSpanTables for n_blocks*block_size samples, or None when
+        the session was built without lam64. The device table depends only
+        on the chunk size, so spans of different lengths with one chunk
+        size (a render's remainder dispatch) share one cached build."""
+        if self._lam64 is None:
+            return None
+        span = n_blocks * self.config.block_size
+        chunk = choose_radix(span)
+        tables = self._span_cache.get(chunk)
+        if tables is None:
+            tables = build_span_tables(
+                self._lam64, chunk, radix=chunk,
+                num_modes=self.bank.num_modes, dtype=self._dtype,
+                device=self.device)
+            self._span_cache[chunk] = tables
+        return dataclasses.replace(tables, n_chunks=span // chunk)
+
+    def span_eligible(self) -> bool:
+        """The span path needs only the lam64 eigenvalues (the sustained
+        channel, which the JAX session also routes through it, is not
+        ported)."""
+        return self._lam64 is not None
+
+    # force_span materialises [O, K, N]-shaped intermediates (per-slot
+    # profiles, membership, f_k): cap K*N*O so a full 16-slot table on a
+    # long offline span cannot demand many GB of device memory at once
+    # (256 objects x 16 slots x a 512-block span = 4.3 GB for f_k alone).
+    # Spans above the cap fall back to step_multi for that dispatch.
+    SPAN_FORCE_BUDGET = 1 << 28
+
+    def _step_span(self, n_blocks: int):
+        """Advance n_blocks via one span dispatch; returns the device mix
+        [n_blocks*S, C] (not synced). Caller checked span_eligible. The
+        slot bucket is the live one (_slot_bucket): the JAX session's
+        drag-only bucket 0 arrives with the sustained channel."""
+        self._maybe_rebase()
+        idle = self._idle() and self.config.decay_fast_path
+        num_slots = self._slot_bucket()
+        k = self.state.slots.num_slots if num_slots is None else num_slots
+        if (not idle and k * n_blocks * self.config.block_size
+                * self.bank.num_objects > self.SPAN_FORCE_BUDGET):
+            self.state, mix = step_multi(
+                self.state, self.bank, self.gains, n_blocks=n_blocks,
+                block_size=self.config.block_size,
+                backend=self.config.backend, num_slots=num_slots)
+        elif idle:
+            self.state, mix = decay_span_step(
+                self.state, self.bank, self.span_tables_for(n_blocks),
+                self.gains, n_blocks=n_blocks,
+                block_size=self.config.block_size)
+        else:
+            self.state, mix = step_span(
+                self.state, self.bank, self.span_tables_for(n_blocks),
+                self.gains, n_blocks=n_blocks,
+                block_size=self.config.block_size, num_slots=num_slots)
+        self._clock += n_blocks * self.config.block_size
+        return mix
+
+    def _step_span_sound(self, n_blocks: int):
+        """_step_span returning the raw per-object sound [O, N] (device,
+        not synced) for span-shaped post-mix stages. No SPAN_FORCE_BUDGET
+        fallback: it serves lookahead-sized spans far below the budget."""
+        self._maybe_rebase()
+        self.state, sound = step_span_sound(
+            self.state, self.bank, self.span_tables_for(n_blocks),
+            n_blocks=n_blocks, block_size=self.config.block_size,
+            num_slots=self._slot_bucket(),
+            idle=self._idle() and self.config.decay_fast_path)
+        self._clock += n_blocks * self.config.block_size
+        return sound
+
+    # ------------------------------------------------------------- audio
+
     def _step_decay(self):
         """The homogeneous-only block (see solver.decay_block)."""
         self.state, sound, mix, qnorm = decay_block(
@@ -315,4 +395,30 @@ class ModalSession:
         for _ in range(num_blocks):
             _, mix, _ = self.step()
             out.append(mix.cpu().numpy())
+        return np.concatenate(out, axis=0)
+
+    def render_multi(self, num_blocks: int,
+                     blocks_per_dispatch: int = 16) -> np.ndarray:
+        """Offline render, ``blocks_per_dispatch`` blocks per dispatch:
+        [num_blocks * S, 2] stereo float32. Hits already scheduled (future
+        ``when``) fire at the right sample inside a dispatch. Sessions
+        built with lam64 take the chunked span (_step_span); the others
+        step block by block (step_multi)."""
+        self._maybe_rebase()
+        out = []
+        done = 0
+        use_span = self.span_eligible()
+        while done < num_blocks:
+            n = min(blocks_per_dispatch, num_blocks - done)
+            if use_span:
+                mix = self._step_span(n)
+            else:
+                self.state, mix = step_multi(
+                    self.state, self.bank, self.gains, n_blocks=n,
+                    block_size=self.config.block_size,
+                    backend=self.config.backend,
+                    num_slots=self._slot_bucket())
+                self._clock += n * self.config.block_size
+            out.append(mix.cpu().numpy())
+            done += n
         return np.concatenate(out, axis=0)

@@ -9,6 +9,10 @@ ModalSolver::step, modal_solver.h:181-276, does one object):
    through the chosen backend (ops/integrator.py), modal_solver.h:262-271;
 3. mixdown over objects with per-object gains, divided by OUTPUT_SCALE.
 
+The span entries (``step_span``, ``step_span_sound``, ``decay_span_step``)
+advance many blocks in one dispatch through ops/span.py; ``step_multi`` is
+the block-by-block loop they replace where a span does not fit.
+
 The sustained channel is not ported, so the step takes the reference's
 ``with_sustained=False`` branch, which is bitwise identical to the gated
 sum while no channel is active (openpbso_tpu/runtime/solver.py:119-123).
@@ -21,10 +25,14 @@ import torch
 
 from ..config import DEFAULT_BLOCK, OUTPUT_SCALE
 from ..ops.coeffs import ModalBank
-from ..ops.forces import force_block
+from ..ops.forces import force_block, force_span
 from ..ops.integrator import (decay_block_blocked, get_backend,
                               resolve_backend_name)
+from ..ops.span import ChunkSpanTables, decay_span, integrate_span
 from .state import SolverState
+
+_SUSTAINED_NOT_PORTED = ("the sustained channel is not ported yet "
+                         "(ROADMAP.md Queue 1 item 2: the sustained channel)")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -48,6 +56,14 @@ def _mixdown(sound: torch.Tensor, gains: torch.Tensor) -> torch.Tensor:
     else:
         mix = sound.T @ gains
     return mix / OUTPUT_SCALE
+
+
+def _mixdown_span(sound: torch.Tensor, gains: torch.Tensor) -> torch.Tensor:
+    """Span-path mixdown: multi-listener span sound is [O, L, N] (listener
+    axis inside, the layout of ops/span.py), one channel per listener."""
+    if sound.dim() == 3:
+        return torch.einsum("oln,ol->nl", sound, gains) / OUTPUT_SCALE
+    return _mixdown(sound, gains)
 
 
 def _step_block_impl(
@@ -117,6 +133,113 @@ def decay_block(
         state, z_re=z_re, z_im=z_im,
         block_start=state.block_start + block_size)
     return new_state, sound, mix.to(torch.float32), qnorm
+
+
+def step_multi(
+    state: SolverState,
+    bank: ModalBank,
+    gains: torch.Tensor,
+    *,
+    n_blocks: int,
+    block_size: int = DEFAULT_BLOCK,
+    backend: str = "blocked",
+    num_slots: int | None = None,
+) -> tuple[SolverState, torch.Tensor]:
+    """Advance n_blocks block by block in one call (the JAX package's
+    lax.scan of the block step). Force slots are pure functions of the
+    sample clock, so hits scheduled inside the run fire at the right block.
+    Returns (state', mix [n_blocks*S, C])."""
+    mixes = []
+    for _ in range(n_blocks):
+        state, _, mix, _ = _step_block_impl(state, bank, gains, block_size,
+                                            backend, False,
+                                            num_slots=num_slots)
+        mixes.append(mix)
+    return state, torch.cat(mixes, dim=0)
+
+
+def _span_channels(state: SolverState, n_blocks: int, block_size: int,
+                   num_slots: int | None, with_sustained: bool):
+    """The span's excitation channels: the slot table, sliced to its first
+    ``num_slots`` slots. Returns (f_k [O, K, N], space_k [O, K, M])."""
+    if with_sustained:
+        raise NotImplementedError(_SUSTAINED_NOT_PORTED)
+    slots = state.slots
+    if num_slots is not None and num_slots < slots.num_slots:
+        slots = slots.first(num_slots)
+    return force_span(slots, state.block_start, n_blocks * block_size,
+                      block_size)
+
+
+def step_span_sound(
+    state: SolverState,
+    bank: ModalBank,
+    tables: ChunkSpanTables,
+    *,
+    n_blocks: int,
+    block_size: int = DEFAULT_BLOCK,
+    num_slots: int | None = None,
+    with_sustained: bool = False,
+    idle: bool = False,
+) -> tuple[SolverState, torch.Tensor]:
+    """Advance n_blocks in one span dispatch (ops/span.py) and return the
+    raw per-object sound: (state', sound [O, N] or [O, L, N]).
+
+    ``num_slots`` slices the force-slot table to its first k slots (the
+    host's live count): per-slot work scales with k. ``idle=True`` is the
+    ring-down fast path (decay_span), for a scene whose slots have all
+    expired. The transfer is constant across the span, like the
+    reference's block-constant transfer."""
+    n = n_blocks * block_size
+    if idle:
+        z_re, z_im, sound = decay_span(state.z_re, state.z_im, bank, tables,
+                                       state.transfer, state.transfer_im)
+    else:
+        f_k, space_k = _span_channels(state, n_blocks, block_size,
+                                      num_slots, with_sustained)
+        z_re, z_im, sound = integrate_span(
+            state.z_re, state.z_im, bank, tables, space_k, f_k,
+            state.transfer, state.transfer_im)
+    new_state = dataclasses.replace(state, z_re=z_re, z_im=z_im,
+                                    block_start=state.block_start + n)
+    return new_state, sound
+
+
+def step_span(
+    state: SolverState,
+    bank: ModalBank,
+    tables: ChunkSpanTables,
+    gains: torch.Tensor,
+    *,
+    n_blocks: int,
+    block_size: int = DEFAULT_BLOCK,
+    num_slots: int | None = None,
+    with_sustained: bool = False,
+) -> tuple[SolverState, torch.Tensor]:
+    """Advance n_blocks in one span dispatch with no serial dependency
+    between blocks: the successor to step_multi for offline rendering and
+    throughput, with the block-granular force semantics kept exactly
+    (ops/forces.py::force_span). Returns (state', mix [N, C])."""
+    state, sound = step_span_sound(
+        state, bank, tables, n_blocks=n_blocks, block_size=block_size,
+        num_slots=num_slots, with_sustained=with_sustained)
+    return state, _mixdown_span(sound, gains).to(torch.float32)
+
+
+def decay_span_step(
+    state: SolverState,
+    bank: ModalBank,
+    tables: ChunkSpanTables,
+    gains: torch.Tensor,
+    *,
+    n_blocks: int,
+    block_size: int = DEFAULT_BLOCK,
+) -> tuple[SolverState, torch.Tensor]:
+    """Idle-scene span: n_blocks of pure ring-down in one dispatch
+    (host-gated like decay_block). Returns (state', mix [N, C])."""
+    state, sound = step_span_sound(state, bank, tables, n_blocks=n_blocks,
+                                   block_size=block_size, idle=True)
+    return state, _mixdown_span(sound, gains).to(torch.float32)
 
 
 def default_gains(num_objects: int, dtype: torch.dtype = torch.float32,

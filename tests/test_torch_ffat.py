@@ -12,6 +12,16 @@ from openpbso_tpu.utils.synth import synth_fatcube
 from openpbso_tpu_torch.convert import ffat_from_numpy
 from openpbso_tpu_torch.ops import ffat as tf
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """These tensors are small: intra-op threads only slow them down, and
+    under the suite's parallel workers they oversubscribe the cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 M = 8     # modes 0..5 carry maps, 6 and 7 do not
 O = 3
 

@@ -14,6 +14,16 @@ import torch
 from openpbso_tpu.ops import forces as jf
 from openpbso_tpu_torch.ops import forces as tf
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """These tensors are small: intra-op threads only slow them down, and
+    under the suite's parallel workers they oversubscribe the cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 S = 64
 KINDS = {"point": (jf.FORCE_POINT, 1.0), "gaussian": (jf.FORCE_GAUSSIAN, 9.0),
          "hertz": (jf.FORCE_HERTZ, 150.0)}

@@ -1,4 +1,4 @@
-"""GPU-only tests of the port: the CUDA kernel against its plain twin.
+"""GPU-only tests of the port: the CUDA kernels against their plain twins.
 
 They skip without a CUDA device. This file imports no jax, so it also runs
 on a GPU machine that has no JAX installed (tests/conftest.py imports jax;
@@ -10,9 +10,12 @@ import numpy as np
 import pytest
 import torch
 
+from openpbso_tpu_torch.ops import chunk_scan as k1
 from openpbso_tpu_torch.ops import fused_integrator as fi
+from openpbso_tpu_torch.ops import toeplitz_conv as k2
 from openpbso_tpu_torch.ops.coeffs import build_modal_bank, lambda_from_modes
 from openpbso_tpu_torch.ops.integrator import step_block_blocked
+from openpbso_tpu_torch.ops.span import build_span_tables
 from openpbso_tpu_torch.runtime.session import ModalSession
 from openpbso_tpu_torch.runtime.solver import SolverConfig
 from openpbso_tpu_torch.utils.synth import CERAMIC, synth_mode_data
@@ -34,15 +37,20 @@ def _db(test, ref) -> float:
     return -np.inf if err == 0 else 20 * np.log10(err / np.linalg.norm(ref))
 
 
-def _bank(o, n, s, shared, device):
-    """Per-object frequency ranges make a heterogeneous bank; one range
-    for every object makes build_modal_bank store the tables once."""
+def _modes(o, n, shared):
+    """(lam, b, valid) [O, n]: per-object frequency ranges make a
+    heterogeneous bank; one range for every object a shared one."""
     offsets = [0] * o if shared else range(o)
     parts = [lambda_from_modes(CERAMIC.density, synth_mode_data(
         n, 8, seed=7, f_low=100.0 + i, f_high=15000.0 + 3 * i).omega_squared,
         CERAMIC.alpha, CERAMIC.beta) for i in offsets]
-    lam, b, v = (np.stack(x) for x in zip(*parts))
-    return build_modal_bank(lam, b, v, block_size=s, device=device)
+    return tuple(np.stack(x) for x in zip(*parts))
+
+
+def _bank(o, n, s, shared, device):
+    """build_modal_bank stores the tables once for a shared mode set."""
+    return build_modal_bank(*_modes(o, n, shared), block_size=s,
+                            device=device)
 
 
 def _inputs(bank, s, seed=0):
@@ -108,5 +116,87 @@ def test_session_steps_through_the_kernel(cuda):
     busy = fi.LAUNCHES - before
     # slots expire at 260, 516 and 772: blocks at 0, 256, 512, 768 are busy
     assert busy == 4
+    assert np.isfinite(mix).all() and np.abs(mix).max() > 0
+    assert _db(mix, sessions["blocked"].render(10)) <= -90
+
+
+def _randn(rng, *shape, device):
+    return torch.as_tensor(rng.standard_normal(shape), dtype=torch.float32,
+                           device=device)
+
+
+def _assert_kernel_matches_twin(got, again, ref):
+    for k, a, r in zip(got, again, ref):
+        assert torch.equal(k, a)                       # deterministic
+        assert torch.isfinite(k).all()
+        assert _db(k.cpu(), r.cpu()) <= -100
+
+
+@pytest.mark.parametrize("o,n,chunk,n_chunks,shared,decay", [
+    (4, 200, 64, 8, True, False),     # shared lam^C rows, stride 0
+    (3, 300, 512, 40, False, False),  # per-object rows, the long chunk
+    (5, 40, 64, 17, False, False),    # ragged: 40 modes padded to 128
+    (3, 300, 512, 9, True, True),     # ring-down: no injections
+    (2, 40, 64, 16, False, True),
+])
+def test_chunk_scan_matches_twin(cuda, o, n, chunk, n_chunks, shared, decay):
+    tables = build_span_tables(_modes(o, n, shared)[0], chunk * n_chunks,
+                               radix=chunk, device=cuda)
+    assert tables.shared == shared and tables.n_chunks == n_chunks
+    m = tables.b_re.shape[-1]
+    rng = np.random.default_rng(4)
+    z = [_randn(rng, o, m, device=cuda) for _ in range(2)]
+    inj = ([None, None] if decay else
+           [_randn(rng, o, n_chunks, m, device=cuda) for _ in range(2)])
+    args = (*z, tables.b_re[:, chunk], tables.b_im[:, chunk], n_chunks, *inj)
+    before = k1.LAUNCHES
+    got = k1.chunk_scan(*args)
+    again = k1.chunk_scan(*args)
+    assert k1.LAUNCHES == before + 2
+    _assert_kernel_matches_twin(got, again, k1.chunk_scan_reference(*args))
+
+
+@pytest.mark.parametrize("o,nl,k,x,c", [
+    (3, 1, 1, 8, 64),
+    (2, 1, 1, 40, 512),               # the long chunk, 3 chunk tiles
+    (2, 3, 2, 17, 64),                # listener rows, slots, ragged tile
+    (2, 3, 1, 5, 512),
+    (2, 1, 3, 3, 7),                  # odd chunk: a middle column
+])
+def test_toeplitz_conv_matches_twin(cuda, o, nl, k, x, c):
+    rng = np.random.default_rng(5)
+    g = _randn(rng, o, nl, k, c, device=cuda)
+    f = _randn(rng, o, k, x, c, device=cuda)
+    before = k2.LAUNCHES
+    got = k2.toeplitz_conv(g, f)
+    again = k2.toeplitz_conv(g, f)
+    assert k2.LAUNCHES == before + 2
+    assert got.shape == (o, nl, x, c)
+    _assert_kernel_matches_twin([got], [again],
+                                [k2.toeplitz_conv_reference(g, f)])
+
+
+def test_render_multi_spans_through_both_kernels(cuda):
+    """Every span dispatch runs the chunk scan; the ones with live forces
+    also run the Toeplitz convolution, and none runs the per-block kernel."""
+    lam, b, v = _modes(6, 40, False)
+    bank = build_modal_bank(lam, b, v, block_size=256, device=cuda)
+    sessions = {
+        "span": ModalSession(bank, config=SolverConfig(block_size=256),
+                             lam64=lam),
+        "blocked": ModalSession(bank, config=SolverConfig(
+            block_size=256, backend="blocked"))}
+    rng = np.random.default_rng(2)
+    for obj in range(6):
+        space = rng.standard_normal(40)
+        for sess in sessions.values():
+            sess.hit(obj, space, kind="gaussian", width_us=600.0,
+                     when=256 * (obj % 3))
+    before = (k1.LAUNCHES, k2.LAUNCHES, fi.LAUNCHES)
+    mix = sessions["span"].render_multi(10, blocks_per_dispatch=4)
+    # dispatches start at blocks 0, 4 and 8; the last slot expires at
+    # sample 772 (block 3), so only the first dispatch has live forces
+    assert (k1.LAUNCHES - before[0], k2.LAUNCHES - before[1],
+            fi.LAUNCHES - before[2]) == (3, 1, 0)
     assert np.isfinite(mix).all() and np.abs(mix).max() > 0
     assert _db(mix, sessions["blocked"].render(10)) <= -90

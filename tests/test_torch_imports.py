@@ -33,6 +33,7 @@ print(len(names), "jax" in sys.modules)
 def _env():
     env = dict(os.environ)
     env["PYTHONPATH"] = ROOT + os.pathsep + env.get("PYTHONPATH", "")
+    env["OMP_NUM_THREADS"] = "1"     # small tensors; the suite runs workers
     return env
 
 

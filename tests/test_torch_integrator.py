@@ -16,6 +16,16 @@ from openpbso_tpu.utils.synth import CERAMIC, synth_mode_data
 from openpbso_tpu_torch.convert import bank_from_numpy
 from openpbso_tpu_torch.ops import integrator as ti
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """These tensors are small: intra-op threads only slow them down, and
+    under the suite's parallel workers they oversubscribe the cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 S = 128
 
 
