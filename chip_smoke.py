@@ -30,7 +30,22 @@ Phases, in order; any failure raises and the script exits non-zero:
    blocks per span): checked against phase 4's fused render (<= -90 dB)
    and the kernels' launch counts; each kernel is held against its twin
    on the inputs of the render's first busy (and first ring-down)
-   dispatch (<= -100 dB); and the span dispatches are timed.
+   dispatch (<= -100 dB); and the span dispatches are timed;
+6. the sustained AR(2) channel: (a) the ar_noise kernel against its
+   threefry twin (bits bitwise, normals <= -120 dB) at the --sustained
+   span shape 256 x 512 blocks x 512 and at 16 blocks across the rebase
+   modulo, the ar_block kernel against its twin (bitwise, given the
+   kernel's normals) with a quarter of the objects inactive, and
+   toeplitz_conv as the AR noise convolution, all bitwise repeatable and
+   timed with CUDA events; (b) one sustained span dispatch as bench.py
+   --sustained drives it (shared 256x1024, 512 blocks, every object
+   dragging, the drag-only bucket, a span-covering AR table), then with
+   one object retuned (per-object table); (c) phase 4's session and script
+   plus drags on 32 objects (start ~0.2 s, update ~0.6 s, a sigma/mu retune
+   ~0.7 s, end ~1.5 s), rendered per block (fused + ar_block) and by
+   render_multi (ar_noise, chunk_scan, toeplitz_conv): the two agree to
+   <= -60 dB, every kernel of each path launched, and each of ar_noise and
+   ar_block held against its twin on the inputs of the first drag dispatch.
 
 The last two lines of stdout are the kernels' JSON summary and
 {"ok": true, "device": {...}}.
@@ -54,6 +69,9 @@ LAST_HIT_BLOCK = 86          # no hit later than ~1 s
 TIMED_RUNS = 30
 SPAN_CASES = (("shared", 512), ("hetero", 1024))   # bank, blocks per span
 SPAN_DISPATCH = 16           # render_multi's blocks per dispatch
+SUS_SPAN_BLOCKS = 512        # bench.py --sustained: one span of 512 blocks
+DRAGGED = 32                 # objects dragged in phase 6c
+DRAG_EVENTS = (16, 48, 64, 128)   # blocks of start, update, retune, end
 KERNELS = {   # name -> (source, the TPU kernel or XLA stage it replaces)
     "fused_block": ("openpbso_tpu_torch/csrc/fused_block.cu",
                     "openpbso_tpu/ops/pallas_integrator.py:60"),
@@ -61,6 +79,10 @@ KERNELS = {   # name -> (source, the TPU kernel or XLA stage it replaces)
                    "openpbso_tpu/ops/span.py:414"),
     "toeplitz_conv": ("openpbso_tpu_torch/csrc/toeplitz_conv.cu",
                       "openpbso_tpu/ops/span.py:577"),
+    "ar_noise": ("openpbso_tpu_torch/csrc/ar_noise.cu",
+                 "openpbso_tpu/ops/forces.py:378"),
+    "ar_block": ("openpbso_tpu_torch/csrc/ar_block.cu",
+                 "openpbso_tpu/ops/forces.py:607"),
 }
 
 
@@ -112,19 +134,22 @@ def shared_bank(o, n_modes, s, device):
                               device=device)
 
 
+def kernel_modules() -> dict:
+    """kernel name -> the wrapper module holding its LAUNCHES count."""
+    from openpbso_tpu_torch.ops import (ar_block, ar_noise, chunk_scan,
+                                        fused_integrator, toeplitz_conv)
+    return {"fused_block": fused_integrator, "chunk_scan": chunk_scan,
+            "toeplitz_conv": toeplitz_conv, "ar_noise": ar_noise,
+            "ar_block": ar_block}
+
+
 def reset_launches():
-    from openpbso_tpu_torch.ops import chunk_scan, fused_integrator
-    from openpbso_tpu_torch.ops import toeplitz_conv
-    for mod in (fused_integrator, chunk_scan, toeplitz_conv):
+    for mod in kernel_modules().values():
         mod.LAUNCHES = 0
 
 
 def read_launches() -> dict:
-    from openpbso_tpu_torch.ops import chunk_scan, fused_integrator
-    from openpbso_tpu_torch.ops import toeplitz_conv
-    return {"fused_block": fused_integrator.LAUNCHES,
-            "chunk_scan": chunk_scan.LAUNCHES,
-            "toeplitz_conv": toeplitz_conv.LAUNCHES}
+    return {name: mod.LAUNCHES for name, mod in kernel_modules().items()}
 
 
 def block_inputs(bank, s, rng):
@@ -260,8 +285,8 @@ def phase_session(bank, rng):
     mix = sess.render(RENDER_BLOCKS)
     counts = read_launches()
     launches = counts["fused_block"]
-    check(counts["chunk_scan"] == counts["toeplitz_conv"] == 0,
-          f"the per-block path launched span kernels: {counts}")
+    check(all(n == 0 for k, n in counts.items() if k != "fused_block"),
+          f"the per-block path launched other kernels: {counts}")
     check(mix.shape == (RENDER_BLOCKS * S, 2), f"mix shape {mix.shape}")
     check(bool(np.isfinite(mix).all()), "mix not finite")
     peak = float(np.abs(mix).max())
@@ -466,7 +491,7 @@ def phase_span_session(bank, lam64, per_block):
     check(bool(np.isfinite(mix).all()) and float(np.abs(mix).max()) > 0,
           "span mix not finite or silent")
     want = {"fused_block": 0, "chunk_scan": n_dispatch,
-            "toeplitz_conv": busy}
+            "toeplitz_conv": busy, "ar_noise": 0, "ar_block": 0}
     check(counts == want, f"span launches {counts} != {want}")
     db_fused = db_error(mix, per_block["mix"])
     check(db_fused <= -90.0, f"span mix {db_fused} dB vs the fused render")
@@ -501,6 +526,310 @@ def phase_span_session(bank, lam64, per_block):
     }
     print("span session:", json.dumps(summary), flush=True)
     return counts
+
+
+def drag_channel(o, seed, device):
+    """A sustained channel: every fourth object inactive and a ringing
+    history."""
+    import torch
+    from openpbso_tpu_torch.ops.forces import make_sustained_state
+    st = make_sustained_state(o, M, seed=seed, device=device)
+    rng = np.random.default_rng(seed)
+    st.active[:] = torch.as_tensor(np.arange(o) % 4 != 3)
+    st.ar_hist[:] = torch.as_tensor(rng.standard_normal((o, 2)) * 0.01)
+    return st
+
+
+def noise_case(key, block_start, n_blocks, timed=False) -> dict:
+    """ar_noise against its threefry twin: the bits bitwise, the normals
+    <= -120 dB, two runs bitwise equal."""
+    import torch
+    from openpbso_tpu_torch.ops import ar_noise as ka
+    idx0, period = ka.block_counter(block_start, S)
+    got, again = (ka.ar_noise(key, block_start, n_blocks, S)
+                  for _ in range(2))
+    bits = ka.ar_noise(key, block_start, n_blocks, S, bits=True)
+    plain = ka.ar_noise_reference(key, idx0, n_blocks, period, S)
+    bits_equal = torch.equal(bits, ka.ar_noise_reference(
+        key, idx0, n_blocks, period, S, bits=True))
+    torch.cuda.synchronize()
+    label = f"ar_noise {list(got.shape)} from {block_start}"
+    check(torch.equal(got, again), f"{label}: differs between two runs")
+    check(bits_equal, f"{label}: bits differ from the twin's")
+    check(bool(torch.isfinite(got).all()), f"{label}: not finite")
+    out = {"shape": list(got.shape), "block_start": block_start,
+           "bits_bitwise": bits_equal,
+           "normals_bitwise": bool(torch.equal(got, plain)),
+           "db_vs_plain": db_error(got.cpu().numpy(), plain.cpu().numpy()),
+           "max_abs_err": float((got - plain).abs().max())}
+    check(out["db_vs_plain"] <= -120.0,
+          f"{label}: normals {out['db_vs_plain']} dB vs plain")
+    del got, again, bits, plain
+    if timed:
+        out["ms"] = time_ms(lambda: ka.ar_noise(key, block_start, n_blocks,
+                                                S))
+        out["plain_ms"] = time_ms(lambda: ka.ar_noise_reference(
+            key, idx0, n_blocks, period, S), runs=5)
+    return out
+
+
+def block_case(st, block_start, timed=False) -> dict:
+    """ar_block against its twin: bitwise given the kernel's own normals,
+    <= -100 dB with the twin's, two runs bitwise equal."""
+    import torch
+    from openpbso_tpu_torch.ops import ar_block as kb
+    from openpbso_tpu_torch.ops import ar_noise as ka
+    args = (st.key, st.a, st.ar_hist, st.sigma, st.mu, st.active)
+    idx, _ = ka.block_counter(block_start, S)
+    got, again = (kb.ar_block(*args, block_start, S) for _ in range(2))
+    noise = ka.ar_noise(st.key, block_start, 1, S)[:, 0]
+    given = kb.ar_block_reference(*args, idx, S, noise=noise)
+    own = kb.ar_block_reference(*args, idx, S)
+    torch.cuda.synchronize()
+    label = f"ar_block from {block_start}"
+    dbs = []
+    for name, k, a, g, r in zip(("profile", "hist"), got, again, given, own):
+        check(torch.equal(k, a), f"{label}: {name} differs between runs")
+        check(torch.equal(k, g), f"{label}: {name} differs from the twin "
+              "on the kernel's normals")
+        check(bool(torch.isfinite(k).all()), f"{label}: {name} not finite")
+        dbs.append(db_error(k.cpu().numpy(), r.cpu().numpy()))
+    inactive = ~st.active
+    check(bool((got[0][inactive] == 0).all())
+          and torch.equal(got[1][inactive], st.ar_hist[inactive]),
+          f"{label}: inactive objects not left alone")
+    check(max(dbs) <= -100.0, f"{label}: {max(dbs)} dB vs the twin")
+    out = {"objects": st.key.shape[0],
+           "active": int(st.active.sum()), "block_start": block_start,
+           "bitwise_vs_plain_given_normals": True,
+           "db_vs_plain_own_normals": max(dbs),
+           "max_abs_err": max(float((k - g).abs().max())
+                              for k, g in zip(got, given))}
+    if timed:
+        out["ms"] = time_ms(lambda: kb.ar_block(*args, block_start, S))
+        out["plain_ms"] = time_ms(lambda: kb.ar_block_reference(
+            *args, idx, S), runs=5)
+    return out
+
+
+def phase_ar_kernels(seed, device) -> dict:
+    """Phase 6a: the two AR kernels and the noise-conv use of
+    toeplitz_conv against their twins at the shapes the channel gives
+    them."""
+    import torch
+    from openpbso_tpu_torch.config import REBASE_PERIOD
+    from openpbso_tpu_torch.ops import ar_noise as ka
+    from openpbso_tpu_torch.ops import toeplitz_conv as k2
+    from openpbso_tpu_torch.ops.forces import ar_impulse_g
+    st = drag_channel(O, seed, device)
+    out = {"ar_noise": noise_case(st.key, 0, SUS_SPAN_BLOCKS, timed=True),
+           "ar_noise_wrap": noise_case(st.key, REBASE_PERIOD - 8 * S, 16),
+           "ar_block": block_case(st, 3 * S, timed=True),
+           "ar_block_wrap": block_case(st, REBASE_PERIOD + 5 * S)}
+    # the noise convolution of sustained_span: K = 1, C = S, X = 512
+    g = torch.as_tensor(ar_impulse_g((0.783, 0.116), S)[:, :S],
+                        dtype=torch.float32, device=st.key.device)
+    args = (g.expand(O, S)[:, None, None, :],
+            ka.ar_noise(st.key, 0, SUS_SPAN_BLOCKS, S)[:, None])
+    got, again, plain = (fn(*args) for fn in (
+        k2.toeplitz_conv, k2.toeplitz_conv, k2.toeplitz_conv_reference))
+    torch.cuda.synchronize()
+    check(torch.equal(got, again), "noise conv differs between two runs")
+    conv = {"shape": list(got.shape),
+            "bitwise_vs_plain": bool(torch.equal(got, plain)),
+            "db_vs_plain": db_error(got.cpu().numpy(), plain.cpu().numpy()),
+            "max_abs_err": float((got - plain).abs().max())}
+    check(conv["db_vs_plain"] <= -100.0,
+          f"noise conv {conv['db_vs_plain']} dB vs plain")
+    del got, again, plain
+    conv["ms"] = time_ms(lambda: k2.toeplitz_conv(*args))
+    conv["plain_ms"] = time_ms(lambda: k2.toeplitz_conv_reference(*args))
+    out["toeplitz_conv_noise"] = conv
+    print("ar kernels:", json.dumps(out), flush=True)
+    return out
+
+
+def phase_sustained_span(bank, lam64, seed) -> dict:
+    """Phase 6b: one sustained span dispatch as bench.py --sustained drives
+    it (bench.py:159-176): every object dragging, the drag-only bucket, a
+    span-covering shared AR table (grp 512); then one object retuned, a
+    per-object table capped at 32 blocks."""
+    import torch
+    from openpbso_tpu_torch.config import SAMPLE_RATE
+    from openpbso_tpu_torch.ops.forces import FORCE_GAUSSIAN, ar_impulse_g
+    from openpbso_tpu_torch.ops.span import build_span_tables
+    from openpbso_tpu_torch.runtime.session import ModalSession
+    from openpbso_tpu_torch.runtime.solver import default_gains, step_span
+    from openpbso_tpu_torch.runtime.state import make_solver_state
+    dev, m, n_blocks = bank.device, bank.num_modes, SUS_SPAN_BLOCKS
+    tables = build_span_tables(lam64, n_blocks * S, num_modes=m, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    state = make_solver_state(O, m, num_slots=8, seed=seed, device=dev)
+    state.slots.ftype[:, 0] = FORCE_GAUSSIAN
+    state.slots.width[:, 0] = 40.0
+    state.slots.space[:, 0] = torch.randn((O, m), generator=gen, device=dev)
+    state.sustained.active[:] = True
+    state.sustained.space[:] = torch.randn((O, m), generator=gen, device=dev)
+    gains = default_gains(O, device=dev)
+    a = np.tile([[0.783, 0.116]], (O, 1))
+    out = {"O": O, "M": m, "n_blocks": n_blocks, "chunk": tables.chunk}
+    for case in ("shared", "per_object"):
+        if case == "per_object":
+            a[7] = (0.9, 0.05)
+            state.sustained.a[7] = torch.tensor(a[7], device=dev)
+        shared = case == "shared"
+        grp = (ModalSession.AR_GROUP_CAP_SHARED if shared
+               else ModalSession.AR_GROUP_CAP_PER_OBJECT)
+        ar_g = torch.as_tensor(ar_impulse_g(a[:1] if shared else a, grp * S),
+                               dtype=torch.float32, device=dev)
+        st, spans = state, []
+        for i in range(7):
+            t0 = torch.cuda.Event(enable_timing=True)
+            t1 = torch.cuda.Event(enable_timing=True)
+            t0.record()
+            st, mix = step_span(st, bank, tables, gains, n_blocks=n_blocks,
+                                block_size=S, num_slots=0,
+                                with_sustained=True, ar_g=ar_g)
+            t1.record()
+            spans.append((t0, t1))
+            if i == 0:
+                check(bool(torch.isfinite(mix).all())
+                      and float(mix.abs().max()) > 0,
+                      f"sustained span ({case}): mix")
+        torch.cuda.synchronize()
+        ms = statistics.median(t0.elapsed_time(t1) for t0, t1 in spans[2:])
+        out[case] = {"ar_table": list(ar_g.shape), "group": grp,
+                     "span_ms": ms,
+                     "span_rtf": n_blocks * S / SAMPLE_RATE / (ms / 1e3)}
+    print("sustained span:", json.dumps(out), flush=True)
+    return out
+
+
+@contextlib.contextmanager
+def capture_ar_kernel_inputs():
+    """While open, keep a copy of the arguments of the first ar_noise and
+    ar_block calls the forces module makes."""
+    import torch
+    from openpbso_tpu_torch.ops import forces as forces_mod
+    captured = {}
+
+    def capturing(fn, label):
+        def call(*args):
+            if label not in captured:
+                captured[label] = [a.clone() if isinstance(a, torch.Tensor)
+                                   else a for a in args]
+            return fn(*args)
+        return call
+    originals = forces_mod.ar_noise, forces_mod.ar_block
+    forces_mod.ar_noise = capturing(originals[0], "ar_noise")
+    forces_mod.ar_block = capturing(originals[1], "ar_block")
+    try:
+        yield captured
+    finally:
+        forces_mod.ar_noise, forces_mod.ar_block = originals
+
+
+def phase_sustained_session(bank, lam64, per_block) -> dict:
+    """Phase 6c: phase 4's session and hit script plus drags, rendered per
+    block and by span; returns the launch counts of each path."""
+    import torch
+    from openpbso_tpu_torch.config import SAMPLE_RATE
+    from openpbso_tpu_torch.ops import ar_block as kb
+    from openpbso_tpu_torch.ops import ar_noise as ka
+    ffat, listeners, hits = (per_block[k] for k in ("ffat", "listeners",
+                                                    "hits"))
+    rng = np.random.default_rng(7)
+    dragged = list(range(1, O, O // DRAGGED))[:DRAGGED]
+    starts = rng.standard_normal((DRAGGED, M))
+    updates = rng.standard_normal((DRAGGED, M))
+    start_b, update_b, retune_b, end_b = DRAG_EVENTS
+    segments = (start_b, update_b - start_b, retune_b - update_b,
+                end_b - retune_b, RENDER_BLOCKS - end_b)
+
+    def run(sess, render):
+        out, seconds = [], []
+        events = (
+            lambda: [sess.sustained_start(o, v)
+                     for o, v in zip(dragged, starts)],
+            lambda: [sess.sustained_update(o, v)
+                     for o, v in zip(dragged, updates)],
+            lambda: sess.set_ar_params(dragged[0], sigma=0.003, mu=0.1),
+            lambda: [sess.sustained_end(o) for o in dragged],
+            lambda: None)
+        for n, event in zip(segments, events):
+            t = time.perf_counter()
+            out.append(render(n))
+            seconds.append(time.perf_counter() - t)
+            event()
+        return np.concatenate(out), seconds
+
+    result = {"dragged": DRAGGED, "events_at_blocks": list(DRAG_EVENTS)}
+    sess = new_session(bank, ffat, listeners, hits, "auto")
+    with capture_ar_kernel_inputs() as block_inputs:
+        reset_launches()
+        block_mix, block_s = run(sess, sess.render)
+        block_counts = read_launches()
+    span_sess = new_session(bank, ffat, listeners, hits, "auto",
+                            lam64=lam64)
+    t = time.perf_counter()
+    span_sess.span_tables_for(SPAN_DISPATCH)
+    result["table_build_s"] = time.perf_counter() - t
+    with capture_ar_kernel_inputs() as span_inputs:
+        reset_launches()
+        span_mix, span_s = run(span_sess, lambda n: span_sess.render_multi(
+            n, blocks_per_dispatch=SPAN_DISPATCH))
+        span_counts = read_launches()
+
+    # expected launches, from the hit script's expiry and the drag blocks
+    drag = [start_b <= b < end_b for b in range(RENDER_BLOCKS)]
+    busy = [b * S < per_block["last_expiry"] or drag[b]
+            for b in range(RENDER_BLOCKS)]
+    check(block_counts == {"fused_block": sum(busy), "ar_block": sum(drag),
+                           "ar_noise": 0, "chunk_scan": 0,
+                           "toeplitz_conv": 0},
+          f"per-block launches {block_counts}")
+    dispatches = [b0 + d for b0, n in zip((0,) + DRAG_EVENTS, segments)
+                  for d in range(0, n, SPAN_DISPATCH)]
+    want = {"fused_block": 0, "ar_block": 0,
+            "ar_noise": sum(drag[b] for b in dispatches),
+            "chunk_scan": len(dispatches),
+            "toeplitz_conv": sum(busy[b] + drag[b] for b in dispatches)}
+    check(span_counts == want, f"span launches {span_counts} != {want}")
+    for label, mix in (("per-block", block_mix), ("span", span_mix)):
+        check(mix.shape == (RENDER_BLOCKS * S, 2)
+              and bool(np.isfinite(mix).all())
+              and float(np.abs(mix).max()) > 0,
+              f"{label} drag mix not finite or silent")
+    result["db_span_vs_per_block"] = db_error(span_mix, block_mix)
+    print(f"sustained session: span vs per-block render "
+          f"{result['db_span_vs_per_block']} dB", flush=True)
+    check(result["db_span_vs_per_block"] <= -60.0,
+          f"span render {result['db_span_vs_per_block']} dB vs per-block")
+    drag_blocks = end_b - start_b
+    drag_s = sum(block_s[1:4])
+    result.update(
+        launches_per_block=block_counts, launches_span=span_counts,
+        drag_block_ms_mean=1e3 * drag_s / drag_blocks,
+        drag_span_ms_mean=1e3 * sum(span_s[1:4]) / want["ar_noise"],
+        per_block_rtf=RENDER_BLOCKS * S / SAMPLE_RATE / sum(block_s),
+        span_rtf=RENDER_BLOCKS * S / SAMPLE_RATE / sum(span_s))
+
+    # each kernel against its twin on the first drag dispatch's inputs
+    key, start, n_blocks, s = span_inputs["ar_noise"]
+    result["ar_noise_first_drag_span"] = noise_case(key, start, n_blocks)
+    args = block_inputs["ar_block"]
+    idx, _ = ka.block_counter(args[6], S)
+    got = kb.ar_block(*args)
+    given = kb.ar_block_reference(*args[:6], idx, S,
+                                  noise=ka.ar_noise(args[0], args[6], 1,
+                                                    S)[:, 0])
+    torch.cuda.synchronize()
+    check(all(torch.equal(k, g) for k, g in zip(got, given)),
+          "ar_block differs from its twin on the first drag block")
+    result["ar_block_first_drag_block"] = {"bitwise_vs_plain": True,
+                                           "block_start": args[6]}
+    print("sustained session:", json.dumps(result), flush=True)
+    return {"block": block_counts, "span": span_counts}
 
 
 def main() -> int:
@@ -556,6 +885,10 @@ def main() -> int:
                                             args.seed + i)
     span_launches = phase_span_session(hetero, modes[0], per_block)
 
+    ar = phase_ar_kernels(args.seed, dev)
+    phase_sustained_span(shared, shared_lam, args.seed)
+    drag_launches = phase_sustained_session(hetero, modes[0], per_block)
+
     head = span_cases[SPAN_CASES[0][0]]
     kernels = [dict(name="fused_block", launches=per_block["launches"],
                     max_abs_err=prod["max_abs_err"], ms=prod["kernel_ms"],
@@ -564,6 +897,10 @@ def main() -> int:
                      max_abs_err=head[k]["max_abs_err"], ms=head[k]["ms"],
                      plain_ms=head[k]["plain_ms"])
                 for k in ("chunk_scan", "toeplitz_conv")]
+    kernels += [dict(name=k, launches=drag_launches[path][k],
+                     max_abs_err=ar[k]["max_abs_err"], ms=ar[k]["ms"],
+                     plain_ms=ar[k]["plain_ms"])
+                for k, path in (("ar_noise", "span"), ("ar_block", "block"))]
     for k in kernels:
         k.update(route="cuda", source=KERNELS[k["name"]][0],
                  replaces=KERNELS[k["name"]][1])

@@ -28,21 +28,19 @@ def bank_from_numpy(src, device=None) -> ModalBank:
 
 
 def state_from_numpy(src, device=None) -> SolverState:
-    """A SolverState; the sustained channel must be inactive (the port
-    carries it as data only)."""
+    """A SolverState, the sustained channel with it (its uint32 noise keys
+    as the port's int64 words)."""
     sus = src.sustained
-    if np.asarray(sus.active).any():
-        raise NotImplementedError(
-            "an active sustained channel is not ported yet (ROADMAP.md "
-            "Queue 1 item 2: the sustained channel)")
     sl = src.slots
     return SolverState(
         z_re=_t(src.z_re, device),
         z_im=_t(src.z_im, device),
         slots=ForceSlots(*(_t(getattr(sl, n), device) for n in (
             "ftype", "t0", "width", "amp", "space"))),
-        sustained=SustainedState(*(_t(getattr(sus, n), device) for n in (
-            "active", "space", "ar_hist", "a", "sigma", "mu"))),
+        sustained=SustainedState(
+            *(_t(getattr(sus, n), device) for n in (
+                "active", "space", "ar_hist", "a", "sigma", "mu")),
+            key=_t(np.asarray(sus.key).astype(np.int64), device)),
         transfer=_t(src.transfer, device),
         block_start=int(np.asarray(src.block_start)),
         transfer_im=_t(src.transfer_im, device),

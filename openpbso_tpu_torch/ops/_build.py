@@ -4,9 +4,9 @@
 source, all started together, and links them into one shared library with
 a plain C interface, loaded with ctypes. The build happens at first use,
 goes into ``openpbso_tpu_torch/_build/`` (git-ignored) and is cached by a
-hash of every source and the flags, so a fresh checkout builds once and
-later processes load the cached library. A missing ``nvcc`` or a failed
-build raises.
+hash of every source, every shared header (``csrc/*.cuh``) and the flags,
+so a fresh checkout builds once and later processes load the cached
+library. A missing ``nvcc`` or a failed build raises.
 """
 from __future__ import annotations
 
@@ -52,7 +52,8 @@ def find_nvcc() -> str:
 
 def library_path() -> str:
     digest = hashlib.sha256(" ".join(COMPILE_FLAGS + LINK_FLAGS).encode())
-    for src in sources():
+    headers = sorted(glob.glob(os.path.join(CSRC, "*.cuh")))
+    for src in sources() + headers:
         with open(src, "rb") as fh:
             digest.update(os.path.basename(src).encode() + b"\0"
                           + fh.read())
@@ -125,6 +126,10 @@ def load() -> ctypes.CDLL:
             lib.toeplitz_conv.restype = i
             lib.toeplitz_conv_smem_bytes.argtypes = [i]
             lib.toeplitz_conv_smem_bytes.restype = ll
+            lib.ar_noise.argtypes = [p, ll, ll, p, i, i, i, i, p]
+            lib.ar_noise.restype = i
+            lib.ar_block.argtypes = [p] * 6 + [ll, p, p, i, i, p]
+            lib.ar_block.restype = i
             lib.cuda_error_string.argtypes = [i]
             lib.cuda_error_string.restype = ctypes.c_char_p
             _lib = lib

@@ -10,10 +10,14 @@ import numpy as np
 import pytest
 import torch
 
+from openpbso_tpu_torch.config import REBASE_PERIOD
+from openpbso_tpu_torch.ops import ar_block as kb
+from openpbso_tpu_torch.ops import ar_noise as ka
 from openpbso_tpu_torch.ops import chunk_scan as k1
 from openpbso_tpu_torch.ops import fused_integrator as fi
 from openpbso_tpu_torch.ops import toeplitz_conv as k2
 from openpbso_tpu_torch.ops.coeffs import build_modal_bank, lambda_from_modes
+from openpbso_tpu_torch.ops.forces import ar_impulse_g, make_sustained_state
 from openpbso_tpu_torch.ops.integrator import step_block_blocked
 from openpbso_tpu_torch.ops.span import build_span_tables
 from openpbso_tpu_torch.runtime.session import ModalSession
@@ -200,3 +204,107 @@ def test_render_multi_spans_through_both_kernels(cuda):
             fi.LAUNCHES - before[2]) == (3, 1, 0)
     assert np.isfinite(mix).all() and np.abs(mix).max() > 0
     assert _db(mix, sessions["blocked"].render(10)) <= -90
+
+
+# ----------------------------------------------------- sustained channel
+
+
+def _channel(o, m, device, seed=0):
+    """A sustained channel on the card: every third object inactive, a
+    ringing history and per-object tunings."""
+    st = make_sustained_state(o, m, seed=seed, device=device)
+    rng = np.random.default_rng(seed)
+    st.active[:] = torch.as_tensor(np.arange(o) % 3 != 2)
+    st.ar_hist[:] = torch.as_tensor(rng.standard_normal((o, 2)) * 0.01)
+    st.sigma[:] = torch.as_tensor(rng.uniform(0.001, 0.003, o))
+    st.a[::2] = torch.tensor([0.9, 0.05], device=device)
+    return st
+
+
+@pytest.mark.parametrize("o,x,s,block_start", [
+    (5, 7, 512, 0),
+    (3, 6, 100, REBASE_PERIOD - 3 * 100),   # ragged row, no modulo (S odd)
+    (4, 9, 512, REBASE_PERIOD - 4 * 512),   # the block index wraps
+])
+def test_ar_noise_matches_twin(cuda, o, x, s, block_start):
+    key = make_sustained_state(o, 8, seed=o, device=cuda).key
+    idx0, period = ka.block_counter(block_start, s)
+    before = ka.LAUNCHES
+    got, again = (ka.ar_noise(key, block_start, x, s) for _ in range(2))
+    bits = ka.ar_noise(key, block_start, x, s, bits=True)
+    assert ka.LAUNCHES == before + 3
+    assert torch.equal(got, again)                       # deterministic
+    assert torch.equal(bits, ka.ar_noise_reference(key, idx0, x, period, s,
+                                                   bits=True))
+    ref = ka.ar_noise_reference(key, idx0, x, period, s)
+    assert got.shape == (o, x, s) and torch.isfinite(got).all()
+    assert _db(got.cpu(), ref.cpu()) <= -120
+
+
+@pytest.mark.parametrize("o,s,block_start", [
+    (7, 512, 3 * 512), (4, 100, 0), (6, 512, REBASE_PERIOD + 5 * 512)])
+def test_ar_block_matches_twin(cuda, o, s, block_start):
+    st = _channel(o, 8, cuda)
+    args = (st.key, st.a, st.ar_hist, st.sigma, st.mu, st.active)
+    before = kb.LAUNCHES
+    got, again = (kb.ar_block(*args, block_start, s) for _ in range(2))
+    assert kb.LAUNCHES == before + 2
+    idx, _ = ka.block_counter(block_start, s)
+    noise = ka.ar_noise(st.key, block_start, 1, s)[:, 0]
+    given = kb.ar_block_reference(*args, idx, s, noise=noise)
+    own = kb.ar_block_reference(*args, idx, s)
+    for k, a, g, r in zip(got, again, given, own):
+        assert torch.equal(k, a) and torch.equal(k, g)   # the twin's bits
+        assert torch.isfinite(k).all()
+        assert _db(k.cpu(), r.cpu()) <= -100
+    assert (got[0][2::3] == 0).all()
+    assert torch.equal(got[1][2::3], st.ar_hist[2::3])
+
+
+def test_toeplitz_conv_as_the_ar_noise_conv(cuda):
+    """K = 1 and C = S: the AR noise convolution of sustained_span, with a
+    shared impulse row expanded over the objects."""
+    g = torch.as_tensor(ar_impulse_g((0.783, 0.116), 512)[:, :512],
+                        dtype=torch.float32, device=cuda)
+    key = make_sustained_state(6, 8, device=cuda).key
+    noise = ka.ar_noise(key, 0, 9, 512)
+    conv_g = g.expand(6, 512)[:, None, None, :]
+    got = k2.toeplitz_conv(conv_g, noise[:, None])
+    again = k2.toeplitz_conv(conv_g, noise[:, None])
+    _assert_kernel_matches_twin(
+        [got], [again], [k2.toeplitz_conv_reference(conv_g, noise[:, None])])
+
+
+def test_drags_render_per_block_and_by_span(cuda):
+    """A drag renders through the fused kernel and ar_block per block, and
+    through ar_noise, chunk_scan and toeplitz_conv by span; the two agree
+    (<= -60 dB, the JAX package's span-vs-block contract for drags)."""
+    lam, b, v = _modes(6, 40, False)
+    bank = build_modal_bank(lam, b, v, block_size=256, device=cuda)
+    rng = np.random.default_rng(8)
+    vecs = [rng.standard_normal(40) for _ in range(3)]
+    mixes, counts = {}, {}
+    for path in ("block", "span"):
+        sess = ModalSession(bank, config=SolverConfig(block_size=256),
+                            lam64=lam)
+        render = (sess.render if path == "block" else
+                  lambda n, s=sess: s.render_multi(n, blocks_per_dispatch=4))
+        before = [m.LAUNCHES for m in (fi, kb, ka, k1, k2)]
+        sess.hit(1, vecs[0], kind="gaussian", width_us=600.0)
+        sess.sustained_start(0, vecs[1])
+        sess.sustained_start(3, vecs[2])
+        out = [render(4)]
+        sess.set_ar_params(3, sigma=0.003, mu=0.1)
+        out.append(render(4))
+        sess.sustained_end(0)
+        sess.sustained_end(3)
+        out.append(render(4))
+        mixes[path] = np.concatenate(out)
+        counts[path] = [m.LAUNCHES - n for m, n in
+                        zip((fi, kb, ka, k1, k2), before)]
+    # per block: 8 drag blocks through both kernels; by span: 2 drag spans
+    # (noise + a conv each, plus the slot conv of the first), 3 spans
+    assert counts == {"block": [8, 8, 0, 0, 0], "span": [0, 0, 2, 3, 4]}
+    assert np.isfinite(mixes["span"]).all()
+    assert np.abs(mixes["span"]).max() > 0
+    assert _db(mixes["span"], mixes["block"]) <= -60

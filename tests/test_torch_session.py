@@ -191,10 +191,6 @@ def test_hit_validation(assets):
 
 
 @pytest.mark.parametrize("call", [
-    lambda s: s.sustained_start(0, np.ones(N)),
-    lambda s: s.sustained_update(0, np.ones(N)),
-    lambda s: s.sustained_end(0),
-    lambda s: s.set_ar_params(0),
     lambda s: s.qnorm_probe(),
     lambda s: s.set_complex_transfer(np.ones((O, 128), complex)),
 ])

@@ -407,15 +407,6 @@ def test_two_spans_match_step_multi(banks, layout, dberr):
     assert dberr(st.z_im.numpy(), ref_state.z_im.numpy()) <= -100
 
 
-def test_step_span_refuses_the_sustained_channel(banks):
-    _, tbank, lam64 = banks["shared"]
-    tt = ts.build_span_tables(lam64, S, num_modes=tbank.num_modes)
-    _, state = _seeded_state(banks["shared"][0], 1)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 2"):
-        tsolver.step_span(state, tbank, tt, torch.ones((O, 2)), n_blocks=1,
-                          block_size=S, with_sustained=True)
-
-
 # ----------------------------------------------------------------- session
 
 
