@@ -21,25 +21,30 @@ Phases, in order; any failure raises and the script exits non-zero:
    through the fused kernel; checks the output, the kernels' launch counts
    and the blocked backend's render (<= -90 dB), and times synced
    per-block steps;
-5. the chunked span: the chunk-scan and Toeplitz-conv kernels against
-   their plain twins (<= -100 dB, bitwise repeatable, CUDA-event medians)
-   at the span shapes of a shared 256x1024 bank at 512 blocks and a
-   heterogeneous one at 1024 blocks, with the ms and real-time factor of
-   one full span dispatch at each; then the phase-4 session, built with
-   its float64 eigenvalues, renders the same script with render_multi (16
-   blocks per span): checked against phase 4's fused render (<= -90 dB)
-   and the kernels' launch counts; each kernel is held against its twin
-   on the inputs of the render's first busy (and first ring-down)
-   dispatch (<= -100 dB); and the span dispatches are timed;
+5. the chunked span: (a) the chunk-scan kernel against its plain twin
+   (<= -100 dB) and the Toeplitz-conv kernel against its twin (<= -110
+   dB: the 3xTF32 split on the tensor cores), both bitwise repeatable and
+   timed with CUDA events (medians), the conv also beside one cuDNN
+   conv1d call that computes the same function and against its FP32 and
+   3xTF32 bounds, at the span shapes of a shared 256x1024 bank at 512
+   blocks and a heterogeneous one at 1024 blocks, with the ms and
+   real-time factor of one full span dispatch at each; (b) the phase-4
+   session, built with its float64 eigenvalues, renders the same script
+   with render_multi (16 blocks per span): checked against phase 4's fused
+   render (<= -90 dB) and the kernels' launch counts; each kernel is held
+   against its twin on the inputs of the render's first busy (and first
+   ring-down) dispatch; and the span dispatches are timed; (c) the conv at
+   the span's short chunks: a 3-block span (C = 192) and a one-block span
+   with a full slot bucket (C = 64, K = 16, X = 8);
 6. the sustained AR(2) channel: (a) the ar_noise kernel against its
    threefry twin (bits bitwise, normals <= -120 dB) at the --sustained
    span shape 256 x 512 blocks x 512 and at 16 blocks across the rebase
    modulo, the ar_block kernel against its twin (bitwise, given the
    kernel's normals) with a quarter of the objects inactive, and
-   toeplitz_conv as the AR noise convolution, all bitwise repeatable and
-   timed with CUDA events; (b) one sustained span dispatch as bench.py
-   --sustained drives it (shared 256x1024, 512 blocks, every object
-   dragging, the drag-only bucket, a span-covering AR table), then with
+   toeplitz_conv as the AR noise convolution (as in 5a), all bitwise
+   repeatable and timed with CUDA events; (b) one sustained span dispatch
+   as bench.py --sustained drives it (shared 256x1024, 512 blocks, every
+   object dragging, the drag-only bucket, a span-covering AR table), then with
    one object retuned (per-object table); (c) phase 4's session and script
    plus drags on 32 objects (start ~0.2 s, update ~0.6 s, a sigma/mu retune
    ~0.7 s, end ~1.5 s), rendered per block (fused + ar_block) and by
@@ -47,8 +52,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    <= -60 dB, every kernel of each path launched, and each of ar_noise and
    ar_block held against its twin on the inputs of the first drag dispatch.
 
-The last two lines of stdout are the kernels' JSON summary and
-{"ok": true, "device": {...}}.
+The last two lines of stdout are the kernels' JSON summary (each kernel's
+launches on its path, error, ms, plain and library ms, and its bound from
+bench/roofline.py at the timed shape) and {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
@@ -72,6 +78,11 @@ SPAN_DISPATCH = 16           # render_multi's blocks per dispatch
 SUS_SPAN_BLOCKS = 512        # bench.py --sustained: one span of 512 blocks
 DRAGGED = 32                 # objects dragged in phase 6c
 DRAG_EVENTS = (16, 48, 64, 128)   # blocks of start, update, retune, end
+TOEPLITZ_DB = -110.0         # the 3xTF32 conv against its FP32 twin
+TOEPLITZ_SHAPES = (   # the span's short chunks: label, (O, L, K, X, C)
+    ("3-block span", (O, 1, 1, 8, 192)),
+    ("one-block span, full slot bucket", (O, 1, 16, 8, 64)),
+)
 KERNELS = {   # name -> (source, the TPU kernel or XLA stage it replaces)
     "fused_block": ("openpbso_tpu_torch/csrc/fused_block.cu",
                     "openpbso_tpu/ops/pallas_integrator.py:60"),
@@ -181,6 +192,57 @@ def time_ms(fn, runs=TIMED_RUNS) -> float:
         pairs.append((a, b))
     torch.cuda.synchronize()
     return statistics.median(a.elapsed_time(b) for a, b in pairs)
+
+
+def toeplitz_case(label, g, f, timed=True) -> dict:
+    """toeplitz_conv against its twin on (g, f): <= TOEPLITZ_DB and two
+    runs bitwise equal; timed beside the twin and one cuDNN conv1d call
+    that computes the same function (the yardstick, never called by the
+    port), with its achieved TFLOP/s and its shares of the FP32 (CUDA
+    cores) and 3xTF32 (tensor cores) bounds of bench/roofline.py."""
+    import torch
+    from openpbso_tpu_torch.bench import roofline
+    from openpbso_tpu_torch.bench.toeplitz_ab import conv1d_call
+    from openpbso_tpu_torch.ops import toeplitz_conv as k2
+    got, again, plain = (fn(g, f) for fn in (
+        k2.toeplitz_conv, k2.toeplitz_conv, k2.toeplitz_conv_reference))
+    torch.cuda.synchronize()
+    check(torch.equal(got, again),
+          f"toeplitz_conv ({label}) differs between two runs")
+    check(bool(torch.isfinite(got).all()),
+          f"toeplitz_conv ({label}) not finite")
+    o, nl, k, c = g.shape
+    out = {"case": label, "O": o, "L": nl, "K": k, "X": f.shape[2], "C": c,
+           "db_vs_plain": db_error(got.cpu().numpy(), plain.cpu().numpy()),
+           "max_abs_err": float((got - plain).abs().max())}
+    check(out["db_vs_plain"] <= TOEPLITZ_DB,
+          f"toeplitz_conv ({label}) {out['db_vs_plain']} dB vs plain")
+    del got, again, plain
+    if timed:
+        call, _ = conv1d_call(g, f)
+        out["ms"] = time_ms(lambda: k2.toeplitz_conv(g, f))
+        out["plain_ms"] = time_ms(lambda: k2.toeplitz_conv_reference(g, f))
+        out["library_ms"] = time_ms(call)
+        bound = roofline.toeplitz_conv(o, nl, k, f.shape[2], c)
+        out.update(bound_ms=bound["bound_ms"], bound_by=bound["bound_by"],
+                   tflops=bound["flops"] / out["ms"] / 1e9,
+                   share_fp32_bound=bound["fp32_ms"] / out["ms"],
+                   share_3xtf32_bound=bound["tf32x3_ms"] / out["ms"],
+                   share_bound=bound["bound_ms"] / out["ms"])
+    print("toeplitz_conv case:", json.dumps(out), flush=True)
+    return out
+
+
+def phase_toeplitz_shapes(seed, device) -> dict:
+    """Phase 5c: toeplitz_conv at the span's short-chunk shapes."""
+    import torch
+    gen = torch.Generator(device=device).manual_seed(seed)
+    out = {}
+    for label, (o, nl, k, x, c) in TOEPLITZ_SHAPES:
+        g = torch.randn((o, nl, k, c), generator=gen, device=device)
+        f = torch.randn((o, k, x, c), generator=gen, device=device)
+        out[label] = toeplitz_case(label, g, f)
+    return out
 
 
 def kernel_case(name, bank, s, chunk, rng, timed=False):
@@ -338,7 +400,6 @@ def span_kernel_case(name, bank, lam64, n_blocks, seed):
     import torch
     from openpbso_tpu_torch.config import SAMPLE_RATE
     from openpbso_tpu_torch.ops import chunk_scan as k1
-    from openpbso_tpu_torch.ops import toeplitz_conv as k2
     from openpbso_tpu_torch.ops.forces import FORCE_GAUSSIAN
     from openpbso_tpu_torch.ops.span import build_span_tables
     from openpbso_tpu_torch.runtime.solver import default_gains, step_span
@@ -359,26 +420,23 @@ def span_kernel_case(name, bank, lam64, n_blocks, seed):
     conv_args = (randn(O, 1, 1, c), randn(O, 1, x, c))
     out = {"case": name, "O": O, "M": m, "n_blocks": n_blocks, "chunk": c,
            "n_chunks": x, "table_build_s": table_s}
-    for label, kernel, twin, args, runs in (
-            ("chunk_scan", k1.chunk_scan, k1.chunk_scan_reference,
-             scan_args, 10),
-            ("toeplitz_conv", k2.toeplitz_conv, k2.toeplitz_conv_reference,
-             conv_args, TIMED_RUNS)):
-        got, again, plain = (fn(*args) for fn in (kernel, kernel, twin))
-        torch.cuda.synchronize()
-        if label == "toeplitz_conv":
-            got, again, plain = (got,), (again,), (plain,)
-        err, dbs = 0.0, []
-        for k, a, p in zip(got, again, plain):
-            check(torch.equal(k, a), f"{name}: {label} differs between runs")
-            check(bool(torch.isfinite(k).all()), f"{name}: {label} not finite")
-            err = max(err, float((k - p).abs().max()))
-            dbs.append(db_error(k.cpu().numpy(), p.cpu().numpy()))
-        check(max(dbs) <= -100.0, f"{name}: {label} {max(dbs)} dB vs plain")
-        del got, again, plain
-        out[label] = {"db_vs_plain": max(dbs), "max_abs_err": err,
-                      "ms": time_ms(lambda: kernel(*args)),
-                      "plain_ms": time_ms(lambda: twin(*args), runs=runs)}
+    got, again, plain = (fn(*scan_args) for fn in (
+        k1.chunk_scan, k1.chunk_scan, k1.chunk_scan_reference))
+    torch.cuda.synchronize()
+    err, dbs = 0.0, []
+    for k, a, p in zip(got, again, plain):
+        check(torch.equal(k, a), f"{name}: chunk_scan differs between runs")
+        check(bool(torch.isfinite(k).all()), f"{name}: chunk_scan not finite")
+        err = max(err, float((k - p).abs().max()))
+        dbs.append(db_error(k.cpu().numpy(), p.cpu().numpy()))
+    check(max(dbs) <= -100.0, f"{name}: chunk_scan {max(dbs)} dB vs plain")
+    del got, again, plain
+    out["chunk_scan"] = {
+        "db_vs_plain": max(dbs), "max_abs_err": err,
+        "ms": time_ms(lambda: k1.chunk_scan(*scan_args)),
+        "plain_ms": time_ms(lambda: k1.chunk_scan_reference(*scan_args),
+                            runs=10)}
+    out["toeplitz_conv"] = toeplitz_case(f"{name} span", *conv_args)
     del scan_args, conv_args
 
     # one full span dispatch, as bench.py's span headline drives it: a
@@ -437,28 +495,26 @@ def capture_span_kernel_inputs():
 
 
 def check_dispatch_inputs(captured) -> dict:
-    """Each captured dispatch's kernel call against its twin (<= -100 dB)."""
+    """Each captured dispatch's kernel call against its twin: chunk_scan
+    <= -100 dB, toeplitz_conv through toeplitz_case."""
     import torch
     from openpbso_tpu_torch.ops import chunk_scan as k1
-    from openpbso_tpu_torch.ops import toeplitz_conv as k2
-    pairs = {"chunk_scan": (k1.chunk_scan, k1.chunk_scan_reference),
-             "toeplitz_conv": (k2.toeplitz_conv, k2.toeplitz_conv_reference)}
     want = {("chunk_scan", "busy"), ("chunk_scan", "decay"),
             ("toeplitz_conv", "busy")}
     check(set(captured) == want, f"captured span calls {sorted(captured)}")
     out = {}
     for (label, kind), args in sorted(captured.items()):
-        kernel, twin = pairs[label]
-        got, plain = kernel(*args), twin(*args)
+        shapes = [list(a.shape) for a in args if isinstance(a, torch.Tensor)]
         if label == "toeplitz_conv":
-            got, plain = (got,), (plain,)
+            out[f"{label}_{kind}"] = dict(
+                toeplitz_case(f"{kind} dispatch", *args), shapes=shapes)
+            continue
+        got, plain = k1.chunk_scan(*args), k1.chunk_scan_reference(*args)
         torch.cuda.synchronize()
         db = max(db_error(k.cpu().numpy(), p.cpu().numpy())
                  for k, p in zip(got, plain))
         check(db <= -100.0, f"{label} ({kind} dispatch) {db} dB vs plain")
-        out[f"{label}_{kind}"] = {"db_vs_plain": db,
-                                  "shapes": [list(a.shape) for a in args
-                                             if isinstance(a, torch.Tensor)]}
+        out[f"{label}_{kind}"] = {"db_vs_plain": db, "shapes": shapes}
     return out
 
 
@@ -619,7 +675,6 @@ def phase_ar_kernels(seed, device) -> dict:
     import torch
     from openpbso_tpu_torch.config import REBASE_PERIOD
     from openpbso_tpu_torch.ops import ar_noise as ka
-    from openpbso_tpu_torch.ops import toeplitz_conv as k2
     from openpbso_tpu_torch.ops.forces import ar_impulse_g
     st = drag_channel(O, seed, device)
     out = {"ar_noise": noise_case(st.key, 0, SUS_SPAN_BLOCKS, timed=True),
@@ -631,20 +686,7 @@ def phase_ar_kernels(seed, device) -> dict:
                         dtype=torch.float32, device=st.key.device)
     args = (g.expand(O, S)[:, None, None, :],
             ka.ar_noise(st.key, 0, SUS_SPAN_BLOCKS, S)[:, None])
-    got, again, plain = (fn(*args) for fn in (
-        k2.toeplitz_conv, k2.toeplitz_conv, k2.toeplitz_conv_reference))
-    torch.cuda.synchronize()
-    check(torch.equal(got, again), "noise conv differs between two runs")
-    conv = {"shape": list(got.shape),
-            "bitwise_vs_plain": bool(torch.equal(got, plain)),
-            "db_vs_plain": db_error(got.cpu().numpy(), plain.cpu().numpy()),
-            "max_abs_err": float((got - plain).abs().max())}
-    check(conv["db_vs_plain"] <= -100.0,
-          f"noise conv {conv['db_vs_plain']} dB vs plain")
-    del got, again, plain
-    conv["ms"] = time_ms(lambda: k2.toeplitz_conv(*args))
-    conv["plain_ms"] = time_ms(lambda: k2.toeplitz_conv_reference(*args))
-    out["toeplitz_conv_noise"] = conv
+    out["toeplitz_conv_noise"] = toeplitz_case("AR noise conv", *args)
     print("ar kernels:", json.dumps(out), flush=True)
     return out
 
@@ -832,6 +874,39 @@ def phase_sustained_session(bank, lam64, per_block) -> dict:
     return {"block": block_counts, "span": span_counts}
 
 
+def kernel_bounds(hetero_modes_padded, shared_modes_padded, n_chunks,
+                  chunk):
+    """Each kernel's bound (bench/roofline.py) at the shape its JSON entry
+    was timed at: fused_block phase 3's hetero block, chunk_scan and
+    toeplitz_conv the shared nb=512 span, ar_noise [O, 512, S] and ar_block
+    O objects. The AR kernels' operations are the instructions per sample
+    of ar_noise's main loop in the built library's SASS
+    (bench/sass_count.py), at the card's maximum SM clock."""
+    from openpbso_tpu_torch.bench import roofline, sass_count
+    from openpbso_tpu_torch.ops import _build
+    clock = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True).stdout.split()[0]
+    clock_hz = float(clock) * 1e6
+    per_sample = sass_count.count(_build.library_path(),
+                                  "ar_noise_kernelILb0E")["by_class_per_item"]
+    out = {
+        "fused_block": roofline.fused_block(O, O, hetero_modes_padded, S,
+                                            CHUNK),
+        "chunk_scan": roofline.chunk_scan(O, 1, n_chunks,
+                                          shared_modes_padded, True),
+        "toeplitz_conv": roofline.toeplitz_conv(O, 1, 1, n_chunks, chunk),
+        "ar_noise": roofline.ar_noise(O, SUS_SPAN_BLOCKS, S, per_sample,
+                                      clock_hz),
+        "ar_block": roofline.ar_block(O, S, per_sample, clock_hz),
+    }
+    print("kernel bounds:", json.dumps(dict(
+        out, sm_clock_hz=clock_hz, ar_noise_sass_per_sample=per_sample)),
+          flush=True)
+    return out
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -884,26 +959,32 @@ def main() -> int:
         span_cases[name] = span_kernel_case(name, bank, lam, n_blocks,
                                             args.seed + i)
     span_launches = phase_span_session(hetero, modes[0], per_block)
+    phase_toeplitz_shapes(args.seed, dev)
 
     ar = phase_ar_kernels(args.seed, dev)
     phase_sustained_span(shared, shared_lam, args.seed)
     drag_launches = phase_sustained_session(hetero, modes[0], per_block)
 
     head = span_cases[SPAN_CASES[0][0]]
+    bounds = kernel_bounds(hetero.num_modes, shared.num_modes,
+                           head["n_chunks"], head["chunk"])
     kernels = [dict(name="fused_block", launches=per_block["launches"],
                     max_abs_err=prod["max_abs_err"], ms=prod["kernel_ms"],
-                    plain_ms=prod["plain_ms"])]
+                    plain_ms=prod["plain_ms"], library_ms=None)]
     kernels += [dict(name=k, launches=span_launches[k],
                      max_abs_err=head[k]["max_abs_err"], ms=head[k]["ms"],
-                     plain_ms=head[k]["plain_ms"])
+                     plain_ms=head[k]["plain_ms"],
+                     library_ms=head[k].get("library_ms"))
                 for k in ("chunk_scan", "toeplitz_conv")]
     kernels += [dict(name=k, launches=drag_launches[path][k],
                      max_abs_err=ar[k]["max_abs_err"], ms=ar[k]["ms"],
-                     plain_ms=ar[k]["plain_ms"])
+                     plain_ms=ar[k]["plain_ms"], library_ms=None)
                 for k, path in (("ar_noise", "span"), ("ar_block", "block"))]
     for k in kernels:
         k.update(route="cuda", source=KERNELS[k["name"]][0],
-                 replaces=KERNELS[k["name"]][1])
+                 replaces=KERNELS[k["name"]][1],
+                 bound_ms=bounds[k["name"]]["bound_ms"],
+                 bound_by=bounds[k["name"]]["bound_by"])
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -2,9 +2,10 @@
 
 The JAX package ``openpbso_tpu`` is the reference; this package mirrors its
 module layout, so every counterpart sits at the same relative path. It
-imports ``torch`` and never ``jax``; the reference's jax-free modules
-(``config``, ``io``, ``utils.synth``, ``utils.oracle``,
-``models.modal_model``) are imported rather than copied.
+imports ``torch`` and never ``jax``, and nothing of ``openpbso_tpu``: the
+reference's numpy-only modules that it needs (``config``, ``io``,
+``utils.synth``, ``models.modal_model``) are copied, and
+tests/test_torch_io.py holds each copy against its original.
 
 Ported so far: the per-block modal step (``runtime.session.ModalSession``
 -> ``runtime.solver.step_block`` -> ``ops.integrator`` backends), with the

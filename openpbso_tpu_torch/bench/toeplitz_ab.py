@@ -1,0 +1,208 @@
+"""A/B timing of builds of the Toeplitz-conv kernel on one NVIDIA GPU.
+
+    python -m openpbso_tpu_torch.bench.toeplitz_ab \\
+        [--variant NAME=PATH.cu ...] [--out chiprun_out/toeplitz_ab.json]
+
+Each variant's source (by default this checkout's csrc/toeplitz_conv.cu,
+named "v3") is built alone with nvcc for sm_90a into its own library under
+openpbso_tpu_torch/_build/ab/ and called through its C interface (the
+library that also exports ``toeplitz_conv_blocks`` takes the 16-byte-copy
+flag; an older one does not). At each shape of the span's callers every
+variant is held against the plain twin (dB, bitwise repeatable), then the
+variants are timed in turns, in the order A B .. B A, each turn the median
+of 30 CUDA-event-timed launches; beside them the twin and one
+``torch.nn.functional.conv1d`` call that computes the same function
+(cuDNN, TF32 off by the port's precision pin), and the bound of
+bench/roofline.py. Prints one JSON line per shape and writes all of them to
+--out. Fails without a CUDA device.
+"""
+from __future__ import annotations
+
+import argparse
+import ctypes
+import json
+import os
+import statistics
+import subprocess
+import sys
+
+SHAPES = (   # name, O, L, K, X, C, g: random or the AR impulse response
+    ("shared_nb512", 256, 1, 1, 512, 512, "randn"),
+    ("hetero_nb1024", 256, 1, 1, 1024, 512, "randn"),
+    ("noise_conv", 256, 1, 1, 512, 512, "ar"),
+    ("span_3block", 256, 1, 1, 8, 192, "randn"),
+    ("span_1block_k16", 256, 1, 16, 8, 64, "randn"),
+    ("session_16blocks", 256, 1, 1, 16, 512, "randn"),
+)
+RUNS = 30
+
+
+def build(name: str, src: str) -> str:
+    from ..ops import _build
+    out_dir = os.path.join(_build.BUILD_DIR, "ab")
+    os.makedirs(out_dir, exist_ok=True)
+    lib = os.path.join(out_dir, f"{name}.so")
+    flags = [f for f in _build.COMPILE_FLAGS if f != "-c"]
+    proc = subprocess.run([_build.find_nvcc(), *flags, "-shared", "-o", lib,
+                           src], capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed on {src}:\n{proc.stdout}"
+                           f"{proc.stderr}")
+    print(f"build {name} ({src}):\n{proc.stdout}{proc.stderr}".strip(),
+          flush=True)
+    return lib
+
+
+class Variant:
+    def __init__(self, name: str, src: str):
+        self.name = name
+        self.lib = ctypes.CDLL(build(name, src))
+        p, i = ctypes.c_void_p, ctypes.c_int
+        self.vec4_flag = hasattr(self.lib, "toeplitz_conv_blocks")
+        self.lib.toeplitz_conv.argtypes = (
+            [p] * 3 + [i] * (6 if self.vec4_flag else 5) + [p])
+        self.lib.toeplitz_conv.restype = i
+
+    def __call__(self, g, f):
+        import torch
+        o, nl, k, c = g.shape
+        x = f.shape[2]
+        out = torch.empty((o, nl, x, c), dtype=torch.float32, device=g.device)
+        ints = [o, nl, k, x, c]
+        if self.vec4_flag:
+            ints.append(int(c % 4 == 0))
+        err = self.lib.toeplitz_conv(g.data_ptr(), f.data_ptr(),
+                                     out.data_ptr(), *ints,
+                                     torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError(f"{self.name}: CUDA error {err}")
+        return out
+
+
+def time_ms(fn, runs=RUNS) -> float:
+    import torch
+    for _ in range(2):
+        fn()
+    pairs = []
+    for _ in range(runs):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        pairs.append((a, b))
+    torch.cuda.synchronize()
+    return statistics.median(a.elapsed_time(b) for a, b in pairs)
+
+
+def db_error(test, ref) -> float:
+    err = float((test.double() - ref.double()).norm())
+    if err == 0.0:
+        return float("-inf")
+    import math
+    return 20.0 * math.log10(err / float(ref.double().norm()))
+
+
+def conv1d_call(g, f):
+    """The same function as one cuDNN call: f as [X, O K, C], g flipped as
+    [O L, K, C], groups = O, the first C of the 2C - 1 outputs."""
+    import torch.nn.functional as F
+    o, nl, k, c = g.shape
+    x = f.shape[2]
+    fin = f.permute(2, 0, 1, 3).reshape(x, o * k, c).contiguous()
+    w = g.flip(-1).reshape(o * nl, k, c).contiguous()
+
+    def call():
+        return F.conv1d(fin, w, padding=c - 1, groups=o)
+
+    def result():
+        return call()[..., :c].reshape(x, o, nl, c).permute(1, 2, 0, 3)
+    return call, result
+
+
+def inputs(o, nl, k, x, c, kind, seed, dev):
+    import torch
+    from ..ops.forces import ar_impulse_g
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    f = torch.randn((o, k, x, c), generator=gen, device=dev)
+    if kind == "ar":
+        row = torch.as_tensor(ar_impulse_g((0.783, 0.116), c)[:, :c],
+                              dtype=torch.float32, device=dev)
+        g = row.expand(o * nl * k, c).reshape(o, nl, k, c).contiguous()
+    else:
+        g = torch.randn((o, nl, k, c), generator=gen, device=dev)
+    return g, f
+
+
+def run_shape(shape, variants, seed, dev) -> dict:
+    import torch
+    from ..ops.toeplitz_conv import toeplitz_conv_reference
+    from . import roofline
+    name, o, nl, k, x, c, kind = shape
+    g, f = inputs(o, nl, k, x, c, kind, seed, dev)
+    twin = toeplitz_conv_reference(g, f)
+    res = {"shape": name, "O": o, "L": nl, "K": k, "X": x, "C": c, "g": kind}
+    for v in variants:
+        got, again = v(g, f), v(g, f)
+        torch.cuda.synchronize()
+        res[v.name] = {"bitwise_repeatable": bool(torch.equal(got, again)),
+                       "db_vs_twin": db_error(got, twin),
+                       "max_abs_err": float((got - twin).abs().max()),
+                       "ms_turns": []}
+        del got, again
+    call, result = conv1d_call(g, f)
+    res["library_db_vs_twin"] = db_error(result(), twin)
+    del twin
+    order = variants + variants[::-1]
+    for v in order:
+        res[v.name]["ms_turns"].append(time_ms(lambda: v(g, f)))
+    for v in variants:
+        res[v.name]["ms"] = statistics.fmean(res[v.name]["ms_turns"])
+    res["plain_ms"] = time_ms(lambda: toeplitz_conv_reference(g, f), runs=10)
+    res["library_ms"] = time_ms(call)
+    res["bound"] = roofline.toeplitz_conv(o, nl, k, x, c)
+    for v in variants:
+        ms = res[v.name]["ms"]
+        res[v.name]["tflops"] = res["bound"]["flops"] / ms / 1e9
+        res[v.name]["share_fp32_bound"] = res["bound"]["fp32_ms"] / ms
+        res[v.name]["share_3xtf32_bound"] = res["bound"]["tf32x3_ms"] / ms
+        res[v.name]["share_bound"] = res["bound"]["bound_ms"] / ms
+    return res
+
+
+def main() -> int:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument("--variant", action="append", default=[],
+                        help="NAME=PATH.cu (default: v3=csrc/toeplitz_conv.cu)")
+    parser.add_argument("--out", default="chiprun_out/toeplitz_ab.json")
+    parser.add_argument("--seed", type=int, default=0)
+    args = parser.parse_args()
+    import torch
+    if not torch.cuda.is_available():
+        print("toeplitz_ab: no CUDA device", file=sys.stderr)
+        return 1
+    import openpbso_tpu_torch  # noqa: F401  (the precision pin)
+    from ..ops import _build
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip()
+    print(smi, flush=True)
+    specs = args.variant or [
+        f"v3={os.path.join(_build.CSRC, 'toeplitz_conv.cu')}"]
+    variants = [Variant(*spec.split("=", 1)) for spec in specs]
+    dev = torch.device("cuda")
+    results = []
+    for i, shape in enumerate(SHAPES):
+        res = run_shape(shape, variants, args.seed + i, dev)
+        res["card"] = smi
+        print(json.dumps(res), flush=True)
+        results.append(res)
+        torch.cuda.empty_cache()
+    os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
+    with open(args.out, "w") as fh:
+        json.dump(results, fh, indent=1)
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

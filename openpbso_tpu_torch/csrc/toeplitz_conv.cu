@@ -1,4 +1,5 @@
-// Within-chunk causal convolution of the chunked span, Hopper (sm_90a).
+// Within-chunk causal convolution of the chunked span, Hopper (sm_90a),
+// on the tensor cores with the 3xTF32 split.
 //
 // Replaces the Toeplitz gather + einsum of
 // openpbso_tpu/ops/span.py::_integrate_span_chunked (span.py:574-585),
@@ -7,117 +8,406 @@
 //
 //   out[o, l, x, c] = sum_k sum_{j<=c} g[o, l, k, c-j] f[o, k, x, j]
 //
-// for L listener rows, K force slots and X chunks of C samples.
+// for L listener rows, K force slots and X chunks of C samples. Per (o, l)
+// that is a triangular GEMM, out[X, C] = sum_k F_k[X, C] T_k, with the
+// Toeplitz operand T_k[j, c] = g[o, l, k, c-j] for j <= c.
 //
-// Bound: FP32 issue on the CUDA cores. The triangle is O L K X C(C+1)/2
-// multiply-adds (1.7e10 at 256 objects, one listener and slot, X = 512,
-// C = 512: ~0.5 ms at the data sheet's 67 TFLOP/s, a reckoning), against
-// only 3 O X C floats of inputs and output.
+// Bound: the triangle is O L K X C(C+1)/2 multiply-adds (1.7e10 at 256
+// objects, one listener and slot, X = 512, C = 512), against 3 O X C
+// floats of inputs and output (0.16 ms at the data sheet's 3.35 TB/s). On
+// the CUDA cores that is ~0.51 ms at 67 TFLOP/s; as three TF32 products
+// on the tensor cores ~0.21 ms at 495 TFLOP/s (data-sheet reckonings;
+// mma.sync reaches ~320 TFLOP/s of TF32 on the card, bench/mma_rate.py).
 //
-// Design against that bound: one block per (object, listener, tile of
-// kTileX chunks). For each slot k the block stages g[o, l, k, :] and the
-// tile's f rows in shared memory, the rows transposed to [C][kTileX] so
-// that the kTileX values of one input sample j are four float4 broadcast
-// reads; the Toeplitz product is built there and nothing of size C*C
-// exists anywhere. A thread owns the output columns c and C-1-c, so every
-// thread does about the same C+1 steps over j whatever its c, and keeps
-// their 2*kTileX sums in registers across the slots: 32 multiply-adds per
-// six shared-memory reads. Every lane of a warp steps through the same j
-// (g is staged behind C zeros, which stand for the Toeplitz entries above
-// the diagonal), so the row reads stay broadcasts; with a j of its own per
-// lane they spread over 32 rows and bank-conflict. Each output is written
-// once, without atomics, so two runs are bitwise equal.
+// Precision: float32 in, float32 out, FP32-accurate. Each operand x is
+// split into two TF32 numbers, x = hi + lo, and each product is
+// a_lo b_hi + a_hi b_lo + a_hi b_hi (the a_lo b_lo term is below float32
+// rounding). For g, split once per slot, hi = rna(x) and lo = rna(x - hi);
+// for f, split as each A fragment is loaded, hi = x with its low 13 bits
+// cleared and lo = x - hi (exact), of which the tensor cores read the top
+// 19 bits: two instructions an element. The tensor cores' own float32
+// accumulation truncates, so the products start from zero every kFlush = 8
+// k8 steps (four on the diagonal) and their sum is added to float32
+// accumulators on the CUDA cores, with rounding to nearest. This split
+// lives only inside this kernel and is admitted by its measured error
+// against the FP32 twin (<= -110 dB, chip_smoke.py,
+// tests/test_torch_gpu.py); the TF32 pin of precision.py (cuBLAS, cuDNN)
+// stays.
+//
+// Design: one block per (object, tile of kBM = 16 chunks, group of up to
+// kGroup = 512 output columns, listener row). For each slot k the block
+// stages the tile's f rows (all C columns) and g[o, l, k, :] in shared
+// memory with cp.async: every byte of f is read from device memory once
+// per column group (once for C <= 512), and two blocks per SM overlap one's
+// copies with the other's products (persistent blocks that double-buffer
+// their stages measured slower: their last round is short). g is split
+// into hi and lo once per slot and stored behind kGPad zeros, so entry
+// (j, c) of T_k is g[kGPad + c - j]: nothing of size C x C exists. Each
+// warp owns two strips of four n8 column tiles, one from each end of the
+// group, so every warp does the same share of the triangle, and holds
+// their [16 x 64] outputs in registers across every slot. A strip walks
+// its k8 steps j8 = 0 .. its last tile: the B fragment of tile n at step
+// j8 depends only on n - j8, so the strip keeps a window of four fragments
+// in registers and loads one new fragment per step (a warp's lanes read
+// 11 consecutive words: broadcasts, no bank conflicts); the A fragment
+// (ldmatrix, rows width + 4 floats apart: conflict-free) is split in
+// registers as it is loaded and feeds the strip's four tiles. Steps below
+// the diagonal are branch-free; the last four steps of a strip, on its
+// diagonal, skip the tiles above it at compile time, so the waste is the
+// upper half of the diagonal n8 tiles (1.6% at C = 512). Each output is
+// written once, without atomics, so two runs are bitwise equal.
 //
 // Plain C interface (loaded with ctypes); the launch goes on the stream
 // passed in, and the first error is returned as a cudaError_t.
 
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace {
 
-constexpr int kTileX = 16;      // chunks per block (a multiple of 4)
-constexpr int kMaxThreads = 256;
+constexpr int kWarps = 8;
+constexpr int kThreads = 32 * kWarps;
+constexpr int kBM = 16;                         // chunk rows per block
+constexpr int kStrip = 4;                       // n8 tiles per strip
+constexpr int kGroup = 2 * kWarps * kStrip * 8; // output columns per block
+constexpr int kFlush = 8;                       // k8 steps per FP32 add
+constexpr int kGPad = 8;                        // zeros before g
 
-__device__ __forceinline__ void fma_row(float (&acc)[kTileX], float gv,
-                                        const float4* row) {
-#pragma unroll
-  for (int q = 0; q < kTileX / 4; ++q) {
-    const float4 fv = row[q];
-    acc[4 * q + 0] += gv * fv.x;
-    acc[4 * q + 1] += gv * fv.y;
-    acc[4 * q + 2] += gv * fv.z;
-    acc[4 * q + 3] += gv * fv.w;
+__host__ __device__ constexpr int round_up(int a, int b) {
+  return (a + b - 1) / b * b;
+}
+
+// dynamic shared memory, offsets in floats: the f tile [kBM][ld] (width
+// columns, zero past C), the raw g row [width], g split into hi and lo
+// behind kGPad zeros
+struct Layout {
+  int width, ld, raw, hi, lo, total;
+  __host__ __device__ explicit Layout(int C) {
+    width = round_up(C, 8 * kStrip);
+    ld = width + 4;   // 4 (mod 32) words: ldmatrix rows hit distinct banks
+    raw = kBM * ld;
+    hi = raw + width;
+    lo = hi + kGPad + width;
+    total = lo + kGPad + width;
+  }
+};
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// kBytes-wide copy to shared memory; the bytes past src_bytes are zeroed
+template <int kBytes>
+__device__ __forceinline__ void cp_async(float* dst, const float* src,
+                                         int src_bytes) {
+  if constexpr (kBytes == 16) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                     smem_addr(dst)),
+                 "l"(src), "r"(src_bytes));
+  } else {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                     smem_addr(dst)),
+                 "l"(src), "r"(src_bytes));
   }
 }
 
-// grid (ceil(X / kTileX), O * L); shared memory fs [C][kTileX], and gs
-// [2C]: C zeros, then g, so that gs[C + c - j] is the Toeplitz entry of
-// (c, j), zero above the diagonal
-__global__ void toeplitz_conv_kernel(const float* __restrict__ g,
-                                     const float* __restrict__ f,
-                                     float* __restrict__ out, int L, int K,
-                                     int X, int C) {
-  extern __shared__ float4 smem4[];
-  float* fs = reinterpret_cast<float*>(smem4);
-  float* gs = fs + C * kTileX;
-  const int ol = blockIdx.y;
-  const int o = ol / L;
-  const int x0 = blockIdx.x * kTileX;
-  const int nx = min(kTileX, X - x0);
-  const int pairs = (C + 1) / 2;
-  const int tid = threadIdx.x;
-  for (int j = tid; j < C; j += blockDim.x) gs[j] = 0.f;
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::);
+}
 
-  for (int p0 = 0; p0 < pairs; p0 += blockDim.x) {
-    // this thread's columns c0 <= c1 (equal for the middle column of an
-    // odd C); the warp's j range covers its largest c0 with both columns
-    // and its largest c1 with the long one, every lane at the same j
-    const bool active = p0 + tid < pairs;
-    const int c0 = active ? p0 + tid : 0;
-    const int c1 = active ? C - 1 - c0 : 0;
-    const int warp_c0 = p0 + (tid & ~31);
-    const int jm0 = min(p0 + (tid | 31), pairs - 1);
-    const int jm1 = C - 1 - warp_c0;
-    float a0[kTileX], a1[kTileX];
+// x = hi + lo: hi = x rounded to TF32 (nearest, ties away), lo = the rest
+// rounded likewise; the tensor cores read the top 19 bits of each (g)
+__device__ __forceinline__ void split_tf32(uint32_t x, uint32_t& hi,
+                                           uint32_t& lo) {
+  hi = (x + 0x1000u) & 0xffffe000u;
+  lo = __float_as_uint(__uint_as_float(x) - __uint_as_float(hi)) + 0x1000u;
+}
+
+// d (+)= A B for one m16n8k8 tile: A row-major 16x8, B 8x8, TF32 in, FP32
+// out; kZero starts d from zero
+template <bool kZero>
+__device__ __forceinline__ void mma_tf32(float (&d)[4],
+                                         const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  if constexpr (kZero) {
+    asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%10,%10,%10,%10};\n"
+        : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1),
+          "f"(0.f));
+  } else {
+    asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+  }
+}
+
+// A fragment of one k8 step, split (f): the four 8x4 quarters of the 16x8
+// tile by one ldmatrix (lane l passes the address of row (l & 7) +
+// 8 ((l >> 3) & 1), column 4 (l >> 4))
+struct AFrag {
+  uint32_t hi[4], lo[4];
+};
+
+__device__ __forceinline__ AFrag load_a(uint32_t addr) {
+  uint32_t r[4];
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+  AFrag a;
 #pragma unroll
-    for (int i = 0; i < kTileX; ++i) a0[i] = a1[i] = 0.f;
-    for (int k = 0; k < K; ++k) {
-      __syncthreads();                    // the previous slot's reads
-      const float* gk = g + ((long long)ol * K + k) * C;
-      for (int j = tid; j < C; j += blockDim.x) gs[C + j] = gk[j];
-      const float* fk = f + (((long long)o * K + k) * X + x0) * C;
-      for (int idx = tid; idx < kTileX * C; idx += blockDim.x) {
-        const int xi = idx / C;
-        const int j = idx - xi * C;
-        fs[j * kTileX + xi] = xi < nx ? fk[(long long)xi * C + j] : 0.f;
-      }
-      __syncthreads();
-      if (warp_c0 < pairs) {              // warp-uniform
-        const float4* rows = reinterpret_cast<const float4*>(fs);
-        const float* g0 = gs + C + c0;
-        const float* g1 = gs + C + c1;
-        int j = 0;
-        for (; j <= jm0; ++j) {           // both columns
-          const float4* row = rows + j * (kTileX / 4);
-          fma_row(a0, g0[-j], row);
-          fma_row(a1, g1[-j], row);
-        }
-        for (; j <= jm1; ++j) {           // the long column alone
-          fma_row(a1, g1[-j], rows + j * (kTileX / 4));
-        }
-      }
+  for (int q = 0; q < 4; ++q) {
+    a.hi[q] = r[q] & 0xffffe000u;
+    a.lo[q] = __float_as_uint(__uint_as_float(r[q]) -
+                              __uint_as_float(a.hi[q]));
+  }
+  return a;
+}
+
+// B fragment of the Toeplitz tile at diagonal offset d = n - j8 (d >= 0):
+// lane (gid, tig) holds T[tig (+4)][gid] = g[8 d + gid - tig (- 4)];
+// hi and lo point at g[gid - tig] of the split row
+struct BFrag {
+  uint32_t h0, h1, l0, l1;
+};
+
+__device__ __forceinline__ BFrag load_b(const float* hi, const float* lo,
+                                        int d) {
+  return {__float_as_uint(hi[8 * d]), __float_as_uint(hi[8 * d - 4]),
+          __float_as_uint(lo[8 * d]), __float_as_uint(lo[8 * d - 4])};
+}
+
+// window slot of tile i's B fragment at k8 step u (mod kStrip)
+__host__ __device__ constexpr int slot(int i, int u) {
+  return ((i - u) % kStrip + kStrip) % kStrip;
+}
+
+// the three products of k8 step kU of a flush group of kG steps for the
+// strip's tiles i >= kFrom; small terms first, started from zero at the
+// group's first step
+template <int kU, int kFrom, int kG>
+__device__ __forceinline__ void step(float (&part)[kStrip][4], const AFrag& a,
+                                     const BFrag (&w)[kStrip]) {
+  constexpr bool kZero = kU % kG == 0;
+#pragma unroll
+  for (int i = kFrom; i < kStrip; ++i)
+    mma_tf32<kZero>(part[i], a.lo, w[slot(i, kU)].h0, w[slot(i, kU)].h1);
+#pragma unroll
+  for (int i = kFrom; i < kStrip; ++i)
+    mma_tf32<false>(part[i], a.hi, w[slot(i, kU)].l0, w[slot(i, kU)].l1);
+#pragma unroll
+  for (int i = kFrom; i < kStrip; ++i)
+    mma_tf32<false>(part[i], a.hi, w[slot(i, kU)].h0, w[slot(i, kU)].h1);
+}
+
+// at the end of a flush group (step kU), add the tiles that took part
+template <int kU, int kFrom, int kG>
+__device__ __forceinline__ void flush(float (&acc)[kStrip][4],
+                                      const float (&part)[kStrip][4]) {
+  if constexpr ((kU + 1) % kG == 0) {
+#pragma unroll
+    for (int i = kFrom; i < kStrip; ++i)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) acc[i][q] += part[i][q];
+  }
+}
+
+// one k8 step j8 = j8_base + kU below the diagonal, every tile: the
+// fragment of tile 0 at the next step replaces the one of tile 3 at this
+// step, in the same window slot
+template <int kU, int kG>
+__device__ __forceinline__ void full_step(float (&acc)[kStrip][4],
+                                          float (&part)[kStrip][4],
+                                          BFrag (&w)[kStrip], uint32_t a_addr,
+                                          const float* bh, const float* bl,
+                                          int nb0, int j8_base) {
+  const int j8 = j8_base + kU;
+  const AFrag a = load_a(a_addr + 32 * j8);
+  const BFrag next = load_b(bh, bl, nb0 - j8 - 1);
+  step<kU, 0, kG>(part, a, w);
+  flush<kU, 0, kG>(acc, part);
+  w[slot(kStrip - 1, kU)] = next;
+}
+
+// diagonal step kU: tiles i >= kU (B fragments d = i - kU, the window's),
+// one flush group; the tiles that took part are all of them
+template <int kU>
+__device__ __forceinline__ void diagonal_step(float (&acc)[kStrip][4],
+                                              float (&part)[kStrip][4],
+                                              const BFrag (&w)[kStrip],
+                                              uint32_t a_diag) {
+  const AFrag a = load_a(a_diag + 32 * kU);
+  step<kU, kU, kStrip>(part, a, w);
+  flush<kU, 0, kStrip>(acc, part);
+}
+
+// One strip s (n8 tiles 4s .. 4s+3) of this warp's 16 rows over one slot:
+// k8 steps j8 = 0 .. 4s-1 with every tile, in flush groups of kFlush steps
+// and a last group of four, then the four diagonal steps. a_addr: this
+// lane's ldmatrix address at column 0; bh/bl: the split g row at this
+// lane's gid - tig.
+__device__ __forceinline__ void strip(float (&acc)[kStrip][4], int s,
+                                      uint32_t a_addr, const float* bh,
+                                      const float* bl) {
+  static_assert(kStrip == 4 && kFlush == 8, "the unrolled steps below");
+  const int nb0 = kStrip * s;
+  BFrag w[kStrip];
+#pragma unroll
+  for (int i = 0; i < kStrip; ++i) w[i] = load_b(bh, bl, nb0 + i);
+  float part[kStrip][4];
+  int j8 = 0;
+  for (; j8 + kFlush <= nb0; j8 += kFlush) {
+    full_step<0, kFlush>(acc, part, w, a_addr, bh, bl, nb0, j8);
+    full_step<1, kFlush>(acc, part, w, a_addr, bh, bl, nb0, j8);
+    full_step<2, kFlush>(acc, part, w, a_addr, bh, bl, nb0, j8);
+    full_step<3, kFlush>(acc, part, w, a_addr, bh, bl, nb0, j8);
+    full_step<4, kFlush>(acc, part, w, a_addr, bh, bl, nb0, j8);
+    full_step<5, kFlush>(acc, part, w, a_addr, bh, bl, nb0, j8);
+    full_step<6, kFlush>(acc, part, w, a_addr, bh, bl, nb0, j8);
+    full_step<7, kFlush>(acc, part, w, a_addr, bh, bl, nb0, j8);
+  }
+  if (j8 < nb0) {
+    full_step<0, kStrip>(acc, part, w, a_addr, bh, bl, nb0, j8);
+    full_step<1, kStrip>(acc, part, w, a_addr, bh, bl, nb0, j8);
+    full_step<2, kStrip>(acc, part, w, a_addr, bh, bl, nb0, j8);
+    full_step<3, kStrip>(acc, part, w, a_addr, bh, bl, nb0, j8);
+  }
+  const uint32_t a_diag = a_addr + 32 * nb0;
+  diagonal_step<0>(acc, part, w, a_diag);
+  diagonal_step<1>(acc, part, w, a_diag);
+  diagonal_step<2>(acc, part, w, a_diag);
+  diagonal_step<3>(acc, part, w, a_diag);
+}
+
+struct Args {
+  const float* g;   // [O, L, K, C]
+  const float* f;   // [O, K, X, C]
+  float* out;       // [O, L, X, C]
+  int L, K, X, C, x_tiles, groups;
+};
+
+// the tile's f rows of slot k (rows past X and columns past C zero-filled)
+// and g[o, l, k, :] (zero past C)
+template <int kVec>
+__device__ __forceinline__ void load_slot(const Args& a, float* smem,
+                                          const Layout& lay, int o, int ol,
+                                          int k, int x0, int rows) {
+  const int tid = threadIdx.x;
+  const float* fk = a.f + ((long long)(o * a.K + k) * a.X + x0) * a.C;
+  const int per_row = lay.width / kVec;
+  for (int v = tid; v < kBM * per_row; v += kThreads) {
+    const int r = v / per_row, j = (v - r * per_row) * kVec;
+    const bool ok = r < rows && j < a.C;   // kVec = 4 only when 4 | C
+    cp_async<4 * kVec>(smem + r * lay.ld + j,
+                       ok ? fk + (long long)r * a.C + j : a.f,
+                       ok ? 4 * kVec : 0);
+  }
+  const float* gk = a.g + ((long long)ol * a.K + k) * a.C;
+  for (int j = tid * kVec; j < lay.width; j += kThreads * kVec) {
+    const bool ok = j < a.C;
+    cp_async<4 * kVec>(smem + lay.raw + j, ok ? gk + j : a.g,
+                       ok ? 4 * kVec : 0);
+  }
+}
+
+// grid: one block per (object, x tile, column group, listener row), the
+// listener rows and column groups that read the same f tile adjacent
+template <int kVec>
+__global__ void __launch_bounds__(kThreads, 2)
+    toeplitz_conv_tc(const Args a) {
+  extern __shared__ __align__(16) float smem[];
+  const Layout lay(a.C);
+  int bid = blockIdx.x;
+  const int l = bid % a.L;
+  bid /= a.L;
+  const int grp = bid % a.groups;
+  bid /= a.groups;
+  const int xt = bid % a.x_tiles;
+  const int o = bid / a.x_tiles;
+  const int ol = o * a.L + l;
+  const int x0 = xt * kBM, rows = min(kBM, a.X - x0);
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int gid = lane >> 2, tig = lane & 3;   // fragment row, column
+  // this warp's strips: a pair from both ends of the group's strips
+  const int first = grp * (kGroup / (8 * kStrip));
+  const int in_group = min(kGroup, lay.width - first * 8 * kStrip) /
+                       (8 * kStrip);
+  const int s0 = first + warp, s1 = first + in_group - 1 - warp;
+
+  float* ghi = smem + lay.hi;
+  float* glo = smem + lay.lo;
+  if (tid < kGPad) ghi[tid] = glo[tid] = 0.f;
+  const uint32_t a_addr = smem_addr(
+      smem + ((lane & 7) + 8 * ((lane >> 3) & 1)) * lay.ld + 4 * (lane >> 4));
+  const float* bh = ghi + kGPad + gid - tig;
+  const float* bl = glo + kGPad + gid - tig;
+
+  float acc[2][kStrip][4];
+#pragma unroll
+  for (int p = 0; p < 2; ++p)
+#pragma unroll
+    for (int i = 0; i < kStrip; ++i)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) acc[p][i][q] = 0.f;
+
+  for (int k = 0; k < a.K; ++k) {
+    if (k > 0) __syncthreads();   // the previous slot's reads are done
+    load_slot<kVec>(a, smem, lay, o, ol, k, x0, rows);
+    cp_async_wait_all();
+    __syncthreads();              // the slot has landed
+    for (int j = tid; j < lay.width; j += kThreads) {
+      uint32_t hi, lo;
+      split_tf32(__float_as_uint(smem[lay.raw + j]), hi, lo);
+      ghi[kGPad + j] = __uint_as_float(hi);
+      glo[kGPad + j] = __uint_as_float(lo);
     }
-    if (active) {
-      float* o_tile = out + ((long long)ol * X + x0) * C;
+    __syncthreads();              // the split row is visible
+    if (s0 <= s1) strip(acc[0], s0, a_addr, bh, bl);
+    if (s0 < s1) strip(acc[1], s1, a_addr, bh, bl);
+  }
+
+  // accumulator q of tile i: row gid (+8 for q >= 2), column 8 n + 2 tig
+  // (+1 for odd q)
+  float* o_tile = a.out + ((long long)ol * a.X + x0) * a.C;
+  const bool pairs = (a.C & 1) == 0;
 #pragma unroll
-      for (int xi = 0; xi < kTileX; ++xi) {
-        if (xi < nx) {
-          o_tile[(long long)xi * C + c0] = a0[xi];
-          if (c1 != c0) o_tile[(long long)xi * C + c1] = a1[xi];
+  for (int p = 0; p < 2; ++p) {
+    const int s = p == 0 ? s0 : s1;
+    if (p == 0 ? s0 > s1 : s0 >= s1) continue;
+#pragma unroll
+    for (int i = 0; i < kStrip; ++i) {
+      const int c = 8 * (kStrip * s + i) + 2 * tig;
+      if (c >= a.C) continue;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = gid + 8 * h;
+        if (r >= rows) continue;
+        float* dst = o_tile + (long long)r * a.C + c;
+        if (pairs) {
+          *reinterpret_cast<float2*>(dst) =
+              make_float2(acc[p][i][2 * h], acc[p][i][2 * h + 1]);
+        } else {
+          dst[0] = acc[p][i][2 * h];
+          if (c + 1 < a.C) dst[1] = acc[p][i][2 * h + 1];
         }
       }
     }
   }
+}
+
+template <int kVec>
+int launch(const Args& a, long long blocks, void* stream) {
+  const size_t smem = sizeof(float) * Layout(a.C).total;
+  cudaError_t err = cudaFuncSetAttribute(
+      toeplitz_conv_tc<kVec>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  toeplitz_conv_tc<kVec><<<(unsigned)blocks, kThreads, smem,
+                           static_cast<cudaStream_t>(stream)>>>(a);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -126,26 +416,24 @@ extern "C" {
 
 // Dynamic shared memory (bytes) one block needs for chunks of C samples.
 long long toeplitz_conv_smem_bytes(int C) {
-  return 4LL * C * (kTileX + 2);
+  return (long long)sizeof(float) * Layout(C).total;
 }
 
-// g [O, L, K, C]; f [O, K, X, C]; out [O, L, X, C]; float32, contiguous.
-// Returns the first cudaError_t (0 = success).
+// Blocks of one launch (the wrapper checks them against the grid limit).
+long long toeplitz_conv_blocks(int O, int L, int X, int C) {
+  return (long long)O * L * ((X + kBM - 1) / kBM) *
+         ((C + kGroup - 1) / kGroup);
+}
+
+// g [O, L, K, C]; f [O, K, X, C]; out [O, L, X, C]; float32, contiguous,
+// O, L, X, C >= 1 and K >= 0. vec4 != 0 takes 16-byte copies (4 | C and
+// g, f 16-byte aligned). Returns the first cudaError_t (0 = success).
 int toeplitz_conv(const float* g, const float* f, float* out, int O, int L,
-                  int K, int X, int C, void* stream) {
-  const size_t smem = (size_t)toeplitz_conv_smem_bytes(C);
-  cudaError_t err = cudaFuncSetAttribute(
-      toeplitz_conv_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const int pairs = (C + 1) / 2;
-  int threads = (pairs + 31) / 32 * 32;
-  if (threads > kMaxThreads) threads = kMaxThreads;
-  const dim3 grid((X + kTileX - 1) / kTileX, O * L);
-  toeplitz_conv_kernel<<<grid, threads, smem,
-                         static_cast<cudaStream_t>(stream)>>>(g, f, out, L, K,
-                                                               X, C);
-  return (int)cudaGetLastError();
+                  int K, int X, int C, int vec4, void* stream) {
+  const Args a{g, f, out, L, K, X, C, (X + kBM - 1) / kBM,
+               (C + kGroup - 1) / kGroup};
+  const long long blocks = toeplitz_conv_blocks(O, L, X, C);
+  return vec4 ? launch<4>(a, blocks, stream) : launch<1>(a, blocks, stream);
 }
 
 }  // extern "C"

@@ -1,1 +1,1 @@
-"""Model assembly (re-exported from the jax-free reference module)."""
+"""Model assembly (the port's own copy of openpbso_tpu/models/modal_model.py)."""

@@ -122,10 +122,12 @@ def load() -> ctypes.CDLL:
             lib.fused_block_smem_bytes.restype = ll
             lib.chunk_scan.argtypes = [p] * 6 + [ll] + [p] * 4 + [i] * 3 + [p]
             lib.chunk_scan.restype = i
-            lib.toeplitz_conv.argtypes = [p] * 3 + [i] * 5 + [p]
+            lib.toeplitz_conv.argtypes = [p] * 3 + [i] * 6 + [p]
             lib.toeplitz_conv.restype = i
             lib.toeplitz_conv_smem_bytes.argtypes = [i]
             lib.toeplitz_conv_smem_bytes.restype = ll
+            lib.toeplitz_conv_blocks.argtypes = [i] * 4
+            lib.toeplitz_conv_blocks.restype = ll
             lib.ar_noise.argtypes = [p, ll, ll, p, i, i, i, i, p]
             lib.ar_noise.restype = i
             lib.ar_block.argtypes = [p] * 6 + [ll, p, p, i, i, p]

@@ -18,8 +18,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from openpbso_tpu.io.fatcube import FatcubeMap
-
+from ..io.fatcube import FatcubeMap
 from .coeffs import round_up
 
 

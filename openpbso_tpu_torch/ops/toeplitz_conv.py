@@ -9,16 +9,18 @@ l and chunk x of C samples,
 The JAX package gathered ``g`` into a Toeplitz tensor ``[O, L*K, C, C]``
 (268 MB at 256 objects, one slot, C = 512) and contracted it with one
 einsum. On CUDA tensors ``toeplitz_conv`` launches a hand-written kernel
-(csrc/toeplitz_conv.cu) that builds each Toeplitz tile in shared memory
-instead; on CPU tensors it runs ``toeplitz_conv_reference``, the JAX
-formula, which is also what the kernel is held against on the card.
+(csrc/toeplitz_conv.cu) that runs the triangular product on the tensor
+cores with the 3xTF32 split (FP32-accurate: held to <= -110 dB against
+the twin) and builds each Toeplitz fragment from ``g`` in shared memory;
+on CPU tensors it runs ``toeplitz_conv_reference``, the JAX formula, which
+is also what the kernel is held against on the card.
 """
 from __future__ import annotations
 
 import torch
 
 MAX_SMEM_BYTES = 232448   # dynamic shared memory a block may use on sm_90
-MAX_GRID_Y = 65535        # one grid row per (object, listener row)
+MAX_BLOCKS = 2**31 - 1    # one grid dimension
 
 # launches of the card's kernel (one per call)
 LAUNCHES = 0
@@ -43,18 +45,24 @@ def _launch(g, f):
         if t.device != g.device or t.dtype != torch.float32:
             raise ValueError("toeplitz_conv takes float32 tensors on one "
                              f"CUDA device; got {t.dtype} on {t.device}")
-    if o * nl > MAX_GRID_Y:
-        raise ValueError(f"{o} objects x {nl} listener rows exceed the "
-                         f"kernel's grid ({MAX_GRID_Y} rows)")
+    if min(o, nl, x, c) < 1:
+        raise ValueError(f"toeplitz_conv needs O, L, X, C >= 1; got g "
+                         f"{tuple(g.shape)}, f {tuple(f.shape)}")
+    if lib.toeplitz_conv_blocks(o, nl, x, c) > MAX_BLOCKS:
+        raise ValueError(f"{o} objects x {nl} listener rows x {x} chunks "
+                         "exceed the kernel's grid")
     if lib.toeplitz_conv_smem_bytes(c) > MAX_SMEM_BYTES:
         raise ValueError(f"chunk {c} does not fit the kernel's shared "
                          "memory; use a smaller chunk")
     g, f = g.contiguous(), f.contiguous()
+    # 16-byte copies need rows of whole float4s on 16-byte boundaries
+    vec4 = int(c % 4 == 0 and g.data_ptr() % 16 == 0
+               and f.data_ptr() % 16 == 0)
     out = torch.empty((o, nl, x, c), dtype=torch.float32, device=g.device)
     with torch.cuda.device(g.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.toeplitz_conv(g.data_ptr(), f.data_ptr(), out.data_ptr(),
-                                o, nl, k, x, c, stream)
+                                o, nl, k, x, c, vec4, stream)
     _build.check(err, "toeplitz_conv")
     return out
 

@@ -1,1 +1,1 @@
-"""Synthetic assets (re-exported from the jax-free reference module)."""
+"""Synthetic assets (the port's own copy of openpbso_tpu/utils/synth.py)."""

@@ -129,11 +129,11 @@ def _randn(rng, *shape, device):
                            device=device)
 
 
-def _assert_kernel_matches_twin(got, again, ref):
+def _assert_kernel_matches_twin(got, again, ref, db=-100):
     for k, a, r in zip(got, again, ref):
         assert torch.equal(k, a)                       # deterministic
         assert torch.isfinite(k).all()
-        assert _db(k.cpu(), r.cpu()) <= -100
+        assert _db(k.cpu(), r.cpu()) <= db
 
 
 @pytest.mark.parametrize("o,n,chunk,n_chunks,shared,decay", [
@@ -162,12 +162,26 @@ def test_chunk_scan_matches_twin(cuda, o, n, chunk, n_chunks, shared, decay):
 
 @pytest.mark.parametrize("o,nl,k,x,c", [
     (3, 1, 1, 8, 64),
-    (2, 1, 1, 40, 512),               # the long chunk, 3 chunk tiles
+    (2, 1, 1, 40, 512),               # the long chunk, 2 row tiles
     (2, 3, 2, 17, 64),                # listener rows, slots, ragged tile
     (2, 3, 1, 5, 512),
-    (2, 1, 3, 3, 7),                  # odd chunk: a middle column
+    (2, 1, 3, 3, 7),                  # odd chunk: 4-byte copies, one tile
+    (3, 2, 1, 37, 7),                 # odd chunk, ragged rows
+    (2, 1, 1, 33, 192),               # a 3-block span's chunk, ragged rows
+    (4, 1, 16, 8, 64),                # a one-block span, full slot bucket
+    (2, 3, 2, 40, 128),               # listener rows and slots, ragged
+    (2, 1, 2, 3, 1),                  # one-sample chunks
+    (1, 1, 1, 9, 600),                # two column groups
+    (1, 2, 1, 5, 513),                # two column groups, odd chunk
+    (256, 1, 1, 512, 512),            # the span headline (shared nb=512)
+    (64, 2, 3, 100, 64),              # more items than resident blocks
+    (140, 1, 1, 17, 1700),            # one stage buffer, many items
+    (1, 1, 2, 5, 3000),               # near the widest chunk it takes
+    (2, 1, 0, 5, 64),                 # no slots: zeros
 ])
 def test_toeplitz_conv_matches_twin(cuda, o, nl, k, x, c):
+    """The 3xTF32 tensor-core kernel is FP32-accurate: <= -110 dB against
+    the FP32 twin at every shape, and bitwise repeatable."""
     rng = np.random.default_rng(5)
     g = _randn(rng, o, nl, k, c, device=cuda)
     f = _randn(rng, o, k, x, c, device=cuda)
@@ -177,7 +191,25 @@ def test_toeplitz_conv_matches_twin(cuda, o, nl, k, x, c):
     assert k2.LAUNCHES == before + 2
     assert got.shape == (o, nl, x, c)
     _assert_kernel_matches_twin([got], [again],
-                                [k2.toeplitz_conv_reference(g, f)])
+                                [k2.toeplitz_conv_reference(g, f)], db=-110)
+
+
+def test_toeplitz_conv_takes_unaligned_rows(cuda):
+    """Views that start off a 16-byte boundary take the 4-byte copies."""
+    rng = np.random.default_rng(6)
+    g = _randn(rng, 2, 1, 1, 65, device=cuda)[..., 1:]
+    f = _randn(rng, 2 * 1 * 9 * 64 + 1, device=cuda)[1:].reshape(2, 1, 9, 64)
+    assert f.data_ptr() % 16 != 0
+    got = k2.toeplitz_conv(g, f)
+    _assert_kernel_matches_twin([got], [k2.toeplitz_conv(g, f)],
+                                [k2.toeplitz_conv_reference(g, f)], db=-110)
+
+
+def test_toeplitz_conv_refuses_a_chunk_it_cannot_hold(cuda):
+    g = torch.zeros((1, 1, 1, 3100), device=cuda)
+    f = torch.zeros((1, 1, 2, 3100), device=cuda)
+    with pytest.raises(ValueError, match="shared memory"):
+        k2.toeplitz_conv(g, f)
 
 
 def test_render_multi_spans_through_both_kernels(cuda):
@@ -272,7 +304,8 @@ def test_toeplitz_conv_as_the_ar_noise_conv(cuda):
     got = k2.toeplitz_conv(conv_g, noise[:, None])
     again = k2.toeplitz_conv(conv_g, noise[:, None])
     _assert_kernel_matches_twin(
-        [got], [again], [k2.toeplitz_conv_reference(conv_g, noise[:, None])])
+        [got], [again], [k2.toeplitz_conv_reference(conv_g, noise[:, None])],
+        db=-110)
 
 
 def test_drags_render_per_block_and_by_span(cuda):

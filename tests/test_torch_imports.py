@@ -1,4 +1,5 @@
-"""The port never imports jax, and chip_smoke.py never falls back to the CPU."""
+"""The port never imports jax nor anything of the JAX package, and
+chip_smoke.py never falls back to the CPU."""
 import os
 import shutil
 import subprocess
@@ -26,7 +27,23 @@ sess = ModalSession(bank, config=SolverConfig(block_size=64, backend="pallas"))
 sess.hit(1, np.ones(16), kind="gaussian", width_us=300.0)
 mix = sess.render(2)
 assert mix.shape == (128, 2) and np.abs(mix).max() > 0
-print(len(names), "jax" in sys.modules)
+print(len(names), "jax" in sys.modules, reference_modules())
+"""
+
+# prepended to each script: the modules of the JAX package it has loaded
+_DEF_REFERENCE_MODULES = r"""
+import sys
+def reference_modules():
+    return ",".join(sorted(n for n in sys.modules if n == "openpbso_tpu"
+                           or n.startswith("openpbso_tpu."))) or "none"
+"""
+
+_CHIP_SMOKE_WITHOUT_JAX = r"""
+import chip_smoke
+chip_smoke.kernel_modules()
+chip_smoke.hetero_modes(2, 8)
+chip_smoke.shared_modes(8)
+print("jax" in sys.modules, reference_modules())
 """
 
 
@@ -38,13 +55,26 @@ def _env():
 
 
 def test_port_imports_and_renders_without_jax():
-    proc = subprocess.run([sys.executable, "-c", _RENDER_WITHOUT_JAX],
-                          capture_output=True, text=True, env=_env(),
-                          cwd=ROOT, timeout=300)
+    proc = subprocess.run(
+        [sys.executable, "-c", _DEF_REFERENCE_MODULES
+         + _RENDER_WITHOUT_JAX], capture_output=True, text=True, env=_env(),
+        cwd=ROOT, timeout=300)
     assert proc.returncode == 0, proc.stderr
-    n_modules, jax_loaded = proc.stdout.split()
-    assert int(n_modules) >= 15
+    n_modules, jax_loaded, reference = proc.stdout.split()
+    assert int(n_modules) >= 20
     assert jax_loaded == "False"
+    assert reference == "none"
+
+
+def test_chip_smoke_imports_nothing_of_the_jax_package():
+    """chip_smoke.py, imported as a module (main not run), and the port
+    modules its phases import lazily load neither jax nor openpbso_tpu."""
+    proc = subprocess.run(
+        [sys.executable, "-c", _DEF_REFERENCE_MODULES
+         + _CHIP_SMOKE_WITHOUT_JAX], capture_output=True, text=True,
+        env=_env(), cwd=ROOT, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.split() == ["False", "none"]
 
 
 @pytest.mark.parametrize("where", ["repo", "alone"])
