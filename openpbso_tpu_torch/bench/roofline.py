@@ -88,10 +88,20 @@ def ar_noise(o: int, x: int, s: int, per_sample: dict,
                   integer_ms(n, per_sample, sm_clock_hz), samples=n)
 
 
+CHAIN_CLOCKS = 4   # latency of one dependent FP32 add or multiply
+
+
 def ar_block(o: int, s: int, per_sample: dict, sm_clock_hz: float) -> dict:
     """Draws its own S normals per object (ar_noise's per-sample
     instructions) and runs the AR(2) recurrence; reads the key, tuning and
-    history rows, writes the [O, S] profile and the history."""
+    history rows, writes the [O, S] profile and the history. The
+    recurrence is a chain of S x 3 dependent FP32 operations (a0 h0, + a1
+    h1, + sigma n, in the twin's rounding order) of CHAIN_CLOCKS each,
+    whatever the number of objects: its time at the SM clock bounds the
+    kernel too."""
     n = o * s
     bytes_ = 8 * 2 * o + 4 * (2 * o + 2 * o + o + o) + o + 4 * (n + 2 * o)
-    return _bound(bytes_, integer_ms(n, per_sample, sm_clock_hz), samples=n)
+    issue_ms = integer_ms(n, per_sample, sm_clock_hz)
+    chain_ms = 1e3 * s * 3 * CHAIN_CLOCKS / sm_clock_hz
+    return _bound(bytes_, max(issue_ms, chain_ms), samples=n,
+                  issue_ms=issue_ms, chain_ms=chain_ms)

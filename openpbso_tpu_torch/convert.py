@@ -3,14 +3,16 @@
 Each function takes an object whose fields can be read with ``np.asarray``
 (for example a JAX ``ModalBank``, ``SolverState``, ``FFATMaps`` or
 ``ChunkSpanTables`` after ``jax.tree.map(np.asarray, x)``) and returns the
-port's counterpart on the chosen device, dtypes unchanged. This module does
-not import jax, so both packages can compute from identical float32 tables.
+port's counterpart on the chosen device (None: the CUDA device, as every
+builder of the port), dtypes unchanged. This module does not import jax, so
+both packages can compute from identical float32 tables.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from .device import resolve_device
 from .ops.coeffs import ModalBank
 from .ops.ffat import DeviceFFAT, FFATMaps
 from .ops.forces import ForceSlots, SustainedState
@@ -23,6 +25,7 @@ def _t(x, device) -> torch.Tensor | None:
 
 
 def bank_from_numpy(src, device=None) -> ModalBank:
+    device = resolve_device(device)
     return ModalBank(**{name: _t(getattr(src, name), device) for name in (
         "lam_re", "lam_im", "b_re", "b_im", "mask", "pow_re", "pow_im")})
 
@@ -30,6 +33,7 @@ def bank_from_numpy(src, device=None) -> ModalBank:
 def state_from_numpy(src, device=None) -> SolverState:
     """A SolverState, the sustained channel with it (its uint32 noise keys
     as the port's int64 words)."""
+    device = resolve_device(device)
     sus = src.sustained
     sl = src.slots
     return SolverState(
@@ -48,6 +52,7 @@ def state_from_numpy(src, device=None) -> SolverState:
 
 
 def ffat_from_numpy(src, device=None) -> FFATMaps:
+    device = resolve_device(device)
     g = src.geom
     if getattr(g, "psi_c", None) is not None:
         raise NotImplementedError(
@@ -64,6 +69,7 @@ def span_tables_from_numpy(src, device=None) -> ChunkSpanTables:
     (``s_re``/``s_im``) are dropped: the port runs the single-level
     chunk scan, which the JAX package holds equal to the superchunk form
     to <= -100 dB (tests/test_span.py)."""
+    device = resolve_device(device)
     return ChunkSpanTables(b_re=_t(src.b_re, device),
                            b_im=_t(src.b_im, device),
                            n_chunks=int(src.n_chunks))

@@ -63,7 +63,15 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "tf32x3.cuh"
+
 namespace {
+
+using tf32x3::AFrag;
+using tf32x3::load_a;
+using tf32x3::mma_tf32;
+using tf32x3::smem_addr;
+using tf32x3::split_tf32;
 
 constexpr int kWarps = 8;
 constexpr int kThreads = 32 * kWarps;
@@ -92,10 +100,6 @@ struct Layout {
   }
 };
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
 // kBytes-wide copy to shared memory; the bytes past src_bytes are zeroed
 template <int kBytes>
 __device__ __forceinline__ void cp_async(float* dst, const float* src,
@@ -113,57 +117,6 @@ __device__ __forceinline__ void cp_async(float* dst, const float* src,
 
 __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::);
-}
-
-// x = hi + lo: hi = x rounded to TF32 (nearest, ties away), lo = the rest
-// rounded likewise; the tensor cores read the top 19 bits of each (g)
-__device__ __forceinline__ void split_tf32(uint32_t x, uint32_t& hi,
-                                           uint32_t& lo) {
-  hi = (x + 0x1000u) & 0xffffe000u;
-  lo = __float_as_uint(__uint_as_float(x) - __uint_as_float(hi)) + 0x1000u;
-}
-
-// d (+)= A B for one m16n8k8 tile: A row-major 16x8, B 8x8, TF32 in, FP32
-// out; kZero starts d from zero
-template <bool kZero>
-__device__ __forceinline__ void mma_tf32(float (&d)[4],
-                                         const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  if constexpr (kZero) {
-    asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%10,%10,%10,%10};\n"
-        : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1),
-          "f"(0.f));
-  } else {
-    asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-  }
-}
-
-// A fragment of one k8 step, split (f): the four 8x4 quarters of the 16x8
-// tile by one ldmatrix (lane l passes the address of row (l & 7) +
-// 8 ((l >> 3) & 1), column 4 (l >> 4))
-struct AFrag {
-  uint32_t hi[4], lo[4];
-};
-
-__device__ __forceinline__ AFrag load_a(uint32_t addr) {
-  uint32_t r[4];
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
-  AFrag a;
-#pragma unroll
-  for (int q = 0; q < 4; ++q) {
-    a.hi[q] = r[q] & 0xffffe000u;
-    a.lo[q] = __float_as_uint(__uint_as_float(r[q]) -
-                              __uint_as_float(a.hi[q]));
-  }
-  return a;
 }
 
 // B fragment of the Toeplitz tile at diagonal offset d = n - j8 (d >= 0):
@@ -224,7 +177,7 @@ __device__ __forceinline__ void full_step(float (&acc)[kStrip][4],
                                           const float* bh, const float* bl,
                                           int nb0, int j8_base) {
   const int j8 = j8_base + kU;
-  const AFrag a = load_a(a_addr + 32 * j8);
+  const AFrag a = load_a<false>(a_addr + 32 * j8);
   const BFrag next = load_b(bh, bl, nb0 - j8 - 1);
   step<kU, 0, kG>(part, a, w);
   flush<kU, 0, kG>(acc, part);
@@ -238,7 +191,7 @@ __device__ __forceinline__ void diagonal_step(float (&acc)[kStrip][4],
                                               float (&part)[kStrip][4],
                                               const BFrag (&w)[kStrip],
                                               uint32_t a_diag) {
-  const AFrag a = load_a(a_diag + 32 * kU);
+  const AFrag a = load_a<false>(a_diag + 32 * kU);
   step<kU, kU, kStrip>(part, a, w);
   flush<kU, 0, kStrip>(acc, part);
 }

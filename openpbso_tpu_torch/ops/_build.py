@@ -10,6 +10,7 @@ library. A missing ``nvcc`` or a failed build raises.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import glob
 import hashlib
@@ -18,6 +19,8 @@ import shutil
 import subprocess
 import tempfile
 import threading
+
+import torch
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
@@ -116,10 +119,12 @@ def load() -> ctypes.CDLL:
             lib = ctypes.CDLL(build())
             p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
             lib.fused_block_step.argtypes = (
-                [p, p, ll] + [p] * 8 + [p] * 5 + [i] * 5 + [p])
+                [p, p, ll, i] + [p] * 8 + [p] * 3 + [i] * 5 + [p])
             lib.fused_block_step.restype = i
             lib.fused_block_smem_bytes.argtypes = [i, i, i]
             lib.fused_block_smem_bytes.restype = ll
+            lib.fused_block_row_floats.argtypes = [i]
+            lib.fused_block_row_floats.restype = i
             lib.chunk_scan.argtypes = [p] * 6 + [ll] + [p] * 4 + [i] * 3 + [p]
             lib.chunk_scan.restype = i
             lib.toeplitz_conv.argtypes = [p] * 3 + [i] * 6 + [p]
@@ -136,6 +141,21 @@ def load() -> ctypes.CDLL:
             lib.cuda_error_string.restype = ctypes.c_char_p
             _lib = lib
         return _lib
+
+
+def launch_stream(t: torch.Tensor) -> int:
+    """The raw handle of the current CUDA stream of ``t``'s device, the
+    stream PyTorch itself would launch on (one C call, no Stream object)."""
+    return torch._C._cuda_getCurrentRawStream(t.get_device())
+
+
+def device_guard(t: torch.Tensor):
+    """A context that makes ``t``'s device current for a launch; nothing
+    when it already is."""
+    idx = t.get_device()
+    if idx == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(idx)
 
 
 def check(err: int, what: str) -> None:

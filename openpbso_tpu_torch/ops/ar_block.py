@@ -20,7 +20,8 @@ import torch
 
 from .ar_noise import ar_noise_reference, block_counter
 
-MAX_SMEM_BYTES = 232448   # dynamic shared memory a block may use on sm_90
+# shared memory a launch may use without an attribute call (the normals)
+MAX_SMEM_BYTES = 48 * 1024
 
 # launches of the card's kernel (one per call)
 LAUNCHES = 0
@@ -52,28 +53,29 @@ def _launch(key, a, hist, sigma, mu, active, block_index, block_size):
     from . import _build
     lib = _build.load()
     o = key.shape[0]
+    idx = key.get_device()
     for t in (a, hist, sigma, mu):
-        if t.device != key.device or t.dtype != torch.float32:
+        if t.get_device() != idx or t.dtype != torch.float32:
             raise ValueError("ar_block takes float32 tensors on the keys' "
                              f"CUDA device; got {t.dtype} on {t.device}")
     if (key.dtype != torch.int64 or active.dtype != torch.bool
-            or active.device != key.device):
+            or active.get_device() != idx):
         raise ValueError("ar_block takes int64 keys and a bool activity "
                          "row on one device")
-    if 4 * block_size > MAX_SMEM_BYTES:      # the block's normals
+    if not all(t.is_contiguous() for t in (key, a, hist, sigma, mu, active)):
+        raise ValueError("ar_block takes contiguous tensors")
+    if 16 * -(-block_size // 4) > MAX_SMEM_BYTES:   # the block's normals
         raise ValueError(f"block size {block_size} does not fit the "
                          "kernel's shared memory")
-    key, a, hist, sigma, mu, active = (t.contiguous() for t in (
-        key, a, hist, sigma, mu, active))
     profile = torch.empty((o, block_size), dtype=torch.float32,
                           device=key.device)
     hist_out = torch.empty_like(hist)
-    with torch.cuda.device(key.device):
-        stream = torch.cuda.current_stream().cuda_stream
+    with _build.device_guard(key):
         err = lib.ar_block(key.data_ptr(), a.data_ptr(), hist.data_ptr(),
                            sigma.data_ptr(), mu.data_ptr(), active.data_ptr(),
                            block_index, profile.data_ptr(),
-                           hist_out.data_ptr(), o, block_size, stream)
+                           hist_out.data_ptr(), o, block_size,
+                           _build.launch_stream(key))
     _build.check(err, "ar_block")
     return profile, hist_out
 

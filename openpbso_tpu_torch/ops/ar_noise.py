@@ -67,10 +67,10 @@ def _launch(key, idx0, n_blocks, period, block_size, bits):
     key = key.contiguous()
     out = torch.empty((o, n_blocks, block_size), dtype=torch.float32,
                       device=key.device)
-    with torch.cuda.device(key.device):
-        stream = torch.cuda.current_stream().cuda_stream
+    with _build.device_guard(key):
         err = lib.ar_noise(key.data_ptr(), idx0, period, out.data_ptr(), o,
-                           n_blocks, block_size, int(bits), stream)
+                           n_blocks, block_size, int(bits),
+                           _build.launch_stream(key))
     _build.check(err, "ar_noise")
     return out.view(torch.int32).to(torch.int64) & MASK if bits else out
 

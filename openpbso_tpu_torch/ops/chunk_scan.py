@@ -71,15 +71,15 @@ def _launch(z_re, z_im, pc_re, pc_im, n_chunks, inj_re, inj_im):
     starts_im = torch.empty_like(starts_re)
     zf_re, zf_im = torch.empty_like(z_re), torch.empty_like(z_im)
     stride = 0 if pc_re.shape[0] == 1 else pc_re.stride(0)
-    with torch.cuda.device(z_re.device):
-        stream = torch.cuda.current_stream().cuda_stream
+    with _build.device_guard(z_re):
         err = lib.chunk_scan(
             z_re.data_ptr(), z_im.data_ptr(),
             None if decay else inj_re.data_ptr(),
             None if decay else inj_im.data_ptr(),
             pc_re.data_ptr(), pc_im.data_ptr(), stride,
             starts_re.data_ptr(), starts_im.data_ptr(),
-            zf_re.data_ptr(), zf_im.data_ptr(), o, m, n_chunks, stream)
+            zf_re.data_ptr(), zf_im.data_ptr(), o, m, n_chunks,
+            _build.launch_stream(z_re))
     _build.check(err, "chunk_scan")
     return zf_re, zf_im, starts_re, starts_im
 

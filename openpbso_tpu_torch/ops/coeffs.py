@@ -15,6 +15,7 @@ import numpy as np
 import torch
 
 from ..config import MODAL_GAIN, SAMPLE_RATE
+from ..device import resolve_device
 
 
 @dataclasses.dataclass(frozen=True)
@@ -135,8 +136,8 @@ def _power_table(lam: np.ndarray, powers) -> np.ndarray:
 def _to_device(x: np.ndarray, dtype: torch.dtype,
                device: torch.device | str | None) -> torch.Tensor:
     """Exact cast of a float64 host array (cast on the host, then one
-    copy to the device)."""
-    return torch.as_tensor(np.asarray(x)).to(dtype).to(device)
+    copy to the device), C-contiguous whatever the host layout."""
+    return torch.as_tensor(np.ascontiguousarray(x)).to(dtype).to(device)
 
 
 def build_modal_bank(
@@ -155,7 +156,9 @@ def build_modal_bank(
     ``lam/b/valid`` may be [M] (one object) or [O, M]; modes are padded to
     a multiple of ``pad_modes_to``. When ``shared`` (or every object has the
     same lam) the power tables are stored once, ``[1, M, S+1]``.
+    ``device`` None is the CUDA device (device.resolve_device).
     """
+    device = resolve_device(device)
     lam = np.atleast_2d(np.asarray(lam))
     b = np.atleast_2d(np.asarray(b))
     valid = np.atleast_2d(np.asarray(valid))
@@ -201,6 +204,7 @@ def bank_from_material(
     device: torch.device | str | None = None,
 ) -> ModalBank:
     """A bank where ``num_objects`` instances share one mode set."""
+    device = resolve_device(device)
     lam, b, valid = lambda_from_modes(density, omega_squared, alpha, beta, h)
     lam = np.broadcast_to(lam, (num_objects, lam.shape[-1]))
     b = np.broadcast_to(b, (num_objects, b.shape[-1]))

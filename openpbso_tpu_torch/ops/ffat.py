@@ -18,6 +18,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from ..device import resolve_device
 from ..io.fatcube import FatcubeMap
 from .coeffs import round_up
 
@@ -95,7 +96,9 @@ def build_ffat(maps: dict[int, FatcubeMap], num_modes: int, *,
                dtype: torch.dtype = torch.float32,
                device: torch.device | str | None = None) -> FFATMaps:
     """Pack decoded fatcube maps (mode id -> map) into device tensors: one
-    shared geometry/texture set (Og = 1)."""
+    shared geometry/texture set (Og = 1). ``device`` None is the CUDA
+    device (device.resolve_device)."""
+    device = resolve_device(device)
     return _maps_to_device(_host_maps(maps, num_modes), dtype, device)
 
 
@@ -103,6 +106,7 @@ def build_ffat_hetero(per_object_maps: list[dict[int, FatcubeMap]],
                       num_modes: int, *, dtype: torch.dtype = torch.float32,
                       device: torch.device | str | None = None) -> FFATMaps:
     """Per-object FFAT maps (heterogeneous scene): geometry axis Og = O."""
+    device = resolve_device(device)
     singles = [_host_maps(maps, num_modes) for maps in per_object_maps]
     p_max = max(a["psi"].shape[-1] for a in singles)
     for a in singles:

@@ -26,6 +26,7 @@ import math
 import numpy as np
 import torch
 
+from ..device import resolve_device
 from .ar_block import ar_block
 from .ar_noise import ar_noise
 from .threefry import prng_key, split
@@ -84,6 +85,7 @@ def make_force_slots(num_objects: int, num_slots: int, num_modes: int,
                      dtype: torch.dtype = torch.float32,
                      device: torch.device | str | None = None) -> ForceSlots:
     o, k, m = num_objects, num_slots, num_modes
+    device = resolve_device(device)
     return ForceSlots(
         ftype=torch.zeros((o, k), dtype=torch.int32, device=device),
         t0=torch.zeros((o, k), dtype=torch.int32, device=device),
@@ -100,6 +102,7 @@ def make_sustained_state(num_objects: int, num_modes: int, seed: int = 0,
     """An inactive channel with the reference's default tuning; the keys
     are ``jax.random.split(jax.random.PRNGKey(seed), O)``'s, bitwise."""
     o, m = num_objects, num_modes
+    device = resolve_device(device)
     return SustainedState(
         active=torch.zeros((o,), dtype=torch.bool, device=device),
         space=torch.zeros((o, m), dtype=dtype, device=device),

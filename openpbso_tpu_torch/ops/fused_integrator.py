@@ -19,17 +19,21 @@ also what the kernel is held against on the card.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
+import torch.nn.functional as F
 
 from .coeffs import ModalBank
 from .integrator import _QNORM_NOT_PORTED, _weighted_gather
 
 DEFAULT_CHUNK = 64
-MAX_SMEM_BYTES = 232448   # dynamic shared memory a block may use on sm_90
-TILE_MODES = (128, 64, 32)  # modes per block (two threads each), widest first
+# dynamic shared memory a block may use on sm_90, less 1 KB for the
+# kernel's static barriers (csrc/fused_block.cu kMaxSmem)
+MAX_SMEM_BYTES = 232448 - 1024
+TILE_MODES = (128, 64, 32)  # modes per block, widest first
 
-# block steps that ran on the card's kernel (one per step, whatever the
-# number of CUDA launches inside it)
+# block steps that ran on the card's kernel (one CUDA launch each)
 LAUNCHES = 0
 
 
@@ -100,6 +104,7 @@ def fused_block_reference(
 
 
 def _tile_modes(s: int, chunk: int, smem_bytes) -> int:
+    """The widest mode tile whose shared memory fits."""
     for tm in TILE_MODES:
         if smem_bytes(tm, s, chunk) <= MAX_SMEM_BYTES:
             return tm
@@ -107,42 +112,69 @@ def _tile_modes(s: int, chunk: int, smem_bytes) -> int:
                      f"kernel's shared memory; use a smaller chunk")
 
 
+def _kernel_tables(bank: ModalBank, chunk: int, tm: int, row: int):
+    """lam^0..lam^chunk tile-major, [Og, T, chunk+1, row]: tile t holds the
+    powers of modes t*tm .. t*tm+tm-1 in rows of ``row`` >= tm floats (modes
+    past M and the row pad zero), so that a range of one tile's rows is one
+    contiguous copy for the kernel. Built from the block tables once per
+    (bank, chunk, tile) and cached on the bank."""
+    key = ("fused", chunk, tm, row)
+    tables = bank._chunk_cache.get(key)
+    if tables is None:
+        if bank.pow_re is None or bank.pow_re.shape[-1] < chunk + 1:
+            raise ValueError(
+                f"bank tables missing or shorter than chunk {chunk}")
+        og, m = bank.pow_re.shape[:2]
+        t = -(-m // tm)
+
+        def tile_major(p):   # [Og, M, S+1] -> [Og, T, C+1, row]
+            x = F.pad(p[..., :chunk + 1], (0, 0, 0, t * tm - m))
+            x = x.reshape(og, t, tm, chunk + 1).transpose(2, 3)
+            return F.pad(x, (0, row - tm)).contiguous()
+        tables = (tile_major(bank.pow_re), tile_major(bank.pow_im))
+        bank._chunk_cache[key] = tables
+    return tables
+
+
+@functools.lru_cache(maxsize=None)
+def _plan(s: int, chunk: int) -> tuple[int, int]:
+    """(modes per tile, floats per table row) of the kernel's launch."""
+    from . import _build
+    lib = _build.load()
+    tm = _tile_modes(s, chunk, lib.fused_block_smem_bytes)
+    return tm, lib.fused_block_row_floats(tm)
+
+
 def _launch(z_re, z_im, bank, space, time_profile, transfer, chunk):
     from . import _build
     lib = _build.load()
     o, m = z_re.shape
     s = time_profile.shape[-1]
-    rows = [z_re, z_im, space, transfer, bank.b_re, bank.b_im, bank.mask]
-    for x in rows + [time_profile]:
-        if x.device != z_re.device or x.dtype != torch.float32:
-            raise ValueError("the fused kernel takes float32 tensors on one "
-                             f"CUDA device; got {x.dtype} on {x.device}")
-    if any(x.shape != (o, m) for x in rows) or time_profile.shape[0] != o:
+    idx = z_re.get_device()
+    rows = (z_re, z_im, space, transfer, bank.b_re, bank.b_im, bank.mask)
+    for x in rows + (time_profile,):
+        if (x.get_device() != idx or x.dtype != torch.float32
+                or not x.is_contiguous()):
+            raise ValueError("the fused kernel takes contiguous float32 "
+                             "tensors on one CUDA device; got "
+                             f"{x.dtype} on {x.device}")
+    if any(x.shape != z_re.shape for x in rows) or time_profile.shape[0] != o:
         raise ValueError("shape mismatch: expected [O, M] rows and an "
                          "[O, S] profile")
-    z_re, z_im, space, transfer, b_re, b_im, mask, time_profile = (
-        x.contiguous() for x in rows + [time_profile])
-    tr, ti = bank.chunk_tables(chunk)
-    tm = _tile_modes(s, chunk, lib.fused_block_smem_bytes)
-    ntiles = -(-m // tm)
+    tm, row = _plan(s, chunk)
+    tr, ti = _kernel_tables(bank, chunk, tm, row)
     z_re_out = torch.empty_like(z_re)
     z_im_out = torch.empty_like(z_im)
-    sound = torch.empty((o, s), dtype=torch.float32, device=z_re.device)
-    hom_part = torch.empty((o, ntiles, s), dtype=torch.float32,
-                           device=z_re.device)
-    g_part = torch.empty((o, ntiles, chunk), dtype=torch.float32,
-                         device=z_re.device)
+    sound = torch.empty_like(time_profile)
     stride = 0 if tr.shape[0] == 1 else tr.stride(0)
-    with torch.cuda.device(z_re.device):
-        stream = torch.cuda.current_stream().cuda_stream
+    with _build.device_guard(z_re):
         err = lib.fused_block_step(
-            tr.data_ptr(), ti.data_ptr(), stride,
-            b_re.data_ptr(), b_im.data_ptr(), space.data_ptr(),
-            transfer.data_ptr(), mask.data_ptr(),
+            tr.data_ptr(), ti.data_ptr(), stride, tr.shape[1],
+            bank.b_re.data_ptr(), bank.b_im.data_ptr(), space.data_ptr(),
+            transfer.data_ptr(), bank.mask.data_ptr(),
             z_re.data_ptr(), z_im.data_ptr(), time_profile.data_ptr(),
             z_re_out.data_ptr(), z_im_out.data_ptr(), sound.data_ptr(),
-            hom_part.data_ptr(), g_part.data_ptr(),
-            o, m, s, chunk, tm, stream)
+            o, m, s, chunk, tm, _build.launch_stream(z_re))
     _build.check(err, "fused_block_step")
     return z_re_out, z_im_out, sound
 

@@ -29,6 +29,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from ..device import resolve_device
 from .chunk_scan import chunk_scan
 from .coeffs import ModalBank, _power_table, _to_device, round_up
 from .integrator import _complex_weights
@@ -90,7 +91,9 @@ def build_span_tables(
     cast: powers amplify the base rounding). ``lam64``: [M] or [O, M]
     complex128, modes zero-padded to ``num_modes`` (or, as build_modal_bank
     pads them, a multiple of 128). One table row serves every object when
-    all rows are equal. ``form``: 'auto' or 'chunked' (the same)."""
+    all rows are equal. ``form``: 'auto' or 'chunked' (the same).
+    ``device`` None is the CUDA device (device.resolve_device)."""
+    device = resolve_device(device)
     if form not in ("auto", "chunked"):
         raise ValueError(f"span form {form!r}: {_OTHER_FORMS}")
     lam = np.atleast_2d(np.asarray(lam64, np.complex128))

@@ -23,6 +23,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..device import resolve_device
+
 MASK = 0xFFFFFFFF
 _PARITY = 0x1BD11BDA
 _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
@@ -63,7 +65,7 @@ def prng_key(seed: int) -> tuple[int, int]:
 def split(key: tuple[int, int], n: int,
           device: torch.device | str | None = None) -> torch.Tensor:
     """``jax.random.split(key, n)``'s key data: [n, 2] int64."""
-    i = torch.arange(n, dtype=torch.int64, device=device)
+    i = torch.arange(n, dtype=torch.int64, device=resolve_device(device))
     x0, x1 = threefry2x32(key[0], key[1], 0, i)
     return torch.stack([x0, x1], dim=-1)
 

@@ -59,10 +59,9 @@ def _launch(g, f):
     vec4 = int(c % 4 == 0 and g.data_ptr() % 16 == 0
                and f.data_ptr() % 16 == 0)
     out = torch.empty((o, nl, x, c), dtype=torch.float32, device=g.device)
-    with torch.cuda.device(g.device):
-        stream = torch.cuda.current_stream().cuda_stream
+    with _build.device_guard(g):
         err = lib.toeplitz_conv(g.data_ptr(), f.data_ptr(), out.data_ptr(),
-                                o, nl, k, x, c, vec4, stream)
+                                o, nl, k, x, c, vec4, _build.launch_stream(g))
     _build.check(err, "toeplitz_conv")
     return out
 

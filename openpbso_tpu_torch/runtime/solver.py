@@ -23,6 +23,7 @@ import dataclasses
 import torch
 
 from ..config import DEFAULT_BLOCK, OUTPUT_SCALE
+from ..device import resolve_device
 from ..ops.coeffs import ModalBank
 from ..ops.forces import (force_block, force_span, sustained_block,
                           sustained_span)
@@ -288,4 +289,5 @@ def decay_span_step(
 def default_gains(num_objects: int, dtype: torch.dtype = torch.float32,
                   device: torch.device | str | None = None) -> torch.Tensor:
     """Unit mono-to-stereo gains (the reference duplicates mono to L/R)."""
-    return torch.ones((num_objects, 2), dtype=dtype, device=device)
+    return torch.ones((num_objects, 2), dtype=dtype,
+                      device=resolve_device(device))

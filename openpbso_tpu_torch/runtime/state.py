@@ -12,6 +12,7 @@ import dataclasses
 import torch
 
 from ..config import UNIT_TRANSFER
+from ..device import resolve_device
 from ..ops.forces import (ForceSlots, SustainedState, make_force_slots,
                           make_sustained_state)
 
@@ -50,6 +51,7 @@ def make_solver_state(
     sustained channel whose noise keys derive from ``seed``, and the
     reference's unit transfer 1E7 (modal_solver.h:89-92)."""
     o, m = num_objects, num_modes
+    device = resolve_device(device)
     fill = UNIT_TRANSFER if unit_transfer else 0.0
     return SolverState(
         z_re=torch.zeros((o, m), dtype=dtype, device=device),

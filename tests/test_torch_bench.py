@@ -59,6 +59,18 @@ def test_integer_bound_takes_the_busiest_pipe(per_item, lanes):
         1e3 * n * lanes / (132 * clock))
 
 
+def test_ar_block_bound_is_its_dependent_chain():
+    """S x 3 dependent FP32 operations of 4 clocks: ~3.1 us at S = 512 and
+    1980 MHz, above the issue time of 256 objects' draws."""
+    per_sample = {"int": 61.0, "imad": 20.0, "fp32": 26.0, "other": 15.0}
+    b = roofline.ar_block(256, 512, per_sample, 1980e6)
+    assert b["chain_ms"] == pytest.approx(512 * 3 * 4 / 1980e6 * 1e3)
+    assert b["chain_ms"] == pytest.approx(0.0031, abs=1e-4)
+    assert b["chain_ms"] > b["issue_ms"] > b["bytes_ms"]
+    assert b["bound_ms"] == b["chain_ms"]
+    assert b["bound_by"] == "operations"
+
+
 _SASS = """
         Function : _Z6kernelPf
         /*0000*/                   MOV R1, c[0x0][0x28] ;

@@ -81,7 +81,8 @@ def test_shared_bank_bitwise(block_size):
     args = (CERAMIC.density, _modes(40), CERAMIC.alpha, CERAMIC.beta)
     jb = jc.bank_from_material(*args, num_objects=3, block_size=block_size,
                                dtype=jnp.float32)
-    tb = tc.bank_from_material(*args, num_objects=3, block_size=block_size)
+    tb = tc.bank_from_material(*args, num_objects=3, block_size=block_size,
+                               device="cpu")
     _assert_bank_equal(tb, jb)
     assert tb.shared_tables == jb.shared_tables
     assert tb.block_size == jb.block_size
@@ -92,16 +93,18 @@ def test_hetero_bank_bitwise():
     lam, b, v = _hetero_lam(jc, 4, 40)
     jb = jc.build_modal_bank(lam, b, v, block_size=32, shared=False,
                              dtype=jnp.float32)
-    tb = tc.build_modal_bank(lam, b, v, block_size=32, shared=False)
+    tb = tc.build_modal_bank(lam, b, v, block_size=32, shared=False,
+                             device="cpu")
     _assert_bank_equal(tb, jb)
     assert not tb.shared_tables and tb.pow_re.shape == (4, 128, 33)
     # shared=None detects distinct per-object modes
-    assert not tc.build_modal_bank(lam, b, v, block_size=32).shared_tables
+    assert not tc.build_modal_bank(lam, b, v, block_size=32,
+                                   device="cpu").shared_tables
 
 
 def test_chunk_tables_are_cached_exact_slices():
     lam, b, v = _hetero_lam(tc, 2, 24)
-    bank = tc.build_modal_bank(lam, b, v, block_size=64)
+    bank = tc.build_modal_bank(lam, b, v, block_size=64, device="cpu")
     tr, ti = bank.chunk_tables(16)
     assert tr.shape == (2, 17, 128) and tr.is_contiguous()
     torch.testing.assert_close(tr, bank.pow_re[..., :17].transpose(1, 2),
@@ -111,7 +114,7 @@ def test_chunk_tables_are_cached_exact_slices():
     assert bank.chunk_tables(16)[0] is tr
     with pytest.raises(ValueError):
         bank.chunk_tables(64 + 1)
-    table_less = tc.build_modal_bank(lam, b, v)
+    table_less = tc.build_modal_bank(lam, b, v, device="cpu")
     with pytest.raises(ValueError):
         table_less.chunk_tables(16)
 

@@ -35,9 +35,10 @@ def _build(hetero):
     if hetero:
         per_obj = [_maps(s, center=(0.01 * s, -0.02, 0.0)) for s in range(O)]
         return (jf.build_ffat_hetero(per_obj, M, dtype=jnp.float32),
-                tf.build_ffat_hetero(per_obj, M))
+                tf.build_ffat_hetero(per_obj, M, device="cpu"))
     maps = _maps(0)
-    return jf.build_ffat(maps, M, dtype=jnp.float32), tf.build_ffat(maps, M)
+    return (jf.build_ffat(maps, M, dtype=jnp.float32),
+            tf.build_ffat(maps, M, device="cpu"))
 
 
 def _listeners(shape):
@@ -67,7 +68,7 @@ def test_build_ffat_matches_jax(hetero):
 @pytest.mark.parametrize("hetero", [False, True])
 def test_compute_transfer_matches_jax(hetero, listener, dberr):
     jmaps, _ = _build(hetero)
-    tmaps = ffat_from_numpy(jax.tree.map(np.asarray, jmaps))
+    tmaps = ffat_from_numpy(jax.tree.map(np.asarray, jmaps), device="cpu")
     pos = _listeners((3,) if listener == "shared" else (O, 3))
     ref = np.asarray(jf.compute_transfer(jmaps, jnp.asarray(pos)))
     got = tf.compute_transfer(tmaps, torch.from_numpy(pos))
@@ -80,4 +81,4 @@ def test_compressed_texture_is_not_carried():
     maps = _maps(0)
     jmaps = jf.build_ffat(maps, M, dtype=jnp.float32, compressed_maps=maps)
     with pytest.raises(NotImplementedError, match="compressed"):
-        ffat_from_numpy(jax.tree.map(np.asarray, jmaps))
+        ffat_from_numpy(jax.tree.map(np.asarray, jmaps), device="cpu")

@@ -100,5 +100,5 @@ def test_slot_tables_and_duration():
         for width in (0.5, 1.0, 7.9, 300.0):
             assert (tf.slot_duration(ftype, width, 512)
                     == jf.slot_duration(ftype, width, 512))
-    sus = tf.make_sustained_state(3, 8)
+    sus = tf.make_sustained_state(3, 8, device="cpu")
     assert not sus.active.any() and sus.space.shape == (3, 8)

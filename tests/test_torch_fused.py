@@ -21,6 +21,7 @@ from openpbso_tpu.ops.pallas_integrator import step_block_pallas
 from openpbso_tpu.utils.synth import CERAMIC, synth_mode_data
 from openpbso_tpu_torch.convert import bank_from_numpy
 from openpbso_tpu_torch.ops import fused_integrator as fi
+from openpbso_tpu_torch.ops.coeffs import ModalBank
 
 @pytest.fixture(scope="module", autouse=True)
 def _one_torch_thread():
@@ -52,7 +53,7 @@ def _jax_bank(o, n, s, hetero):
 
 def _case(o, n, s, hetero=False, seed=5):
     jb = _jax_bank(o, n, s, hetero)
-    tb = bank_from_numpy(jax.tree.map(np.asarray, jb))
+    tb = bank_from_numpy(jax.tree.map(np.asarray, jb), device="cpu")
     m = jb.num_modes
     mask = np.asarray(jb.mask)
     rng = np.random.default_rng(seed)
@@ -152,3 +153,125 @@ def test_tile_choice_fits_shared_memory():
     assert fi._tile_modes(512, 64, smem) == 128
     assert fi._tile_modes(512, 128, smem) == 64
     assert fi._tile_modes(512, 256, smem) == 32
+
+
+@pytest.mark.parametrize("n,tm", [(40, 128), (300, 128), (200, 32)])
+def test_kernel_tables_are_tile_major(n, tm):
+    """The kernel's tables: tile t, row d, column j is lam^d of mode
+    t*tm + j, exact; zero past the bank's modes and in the row pad; cached
+    on the bank."""
+    _, tb, _ = _case(2, n, 128, hetero=True)
+    m = tb.num_modes
+    tr, ti = fi._kernel_tables(tb, 64, tm, tm + 4)
+    t = -(-m // tm)
+    assert tr.shape == ti.shape == (2, t, 65, tm + 4) and tr.is_contiguous()
+    for got, ref in zip((tr, ti), tb.chunk_tables(64)):
+        flat = got[..., :tm].transpose(1, 2).reshape(2, 65, t * tm)
+        assert torch.equal(flat[..., :m], ref)
+        assert not flat[..., m:].any() and not got[..., tm:].any()
+    assert fi._kernel_tables(tb, 64, tm, tm + 4)[0] is tr
+
+
+# ------------------------------------------------ the kernel's numerics
+
+
+def _rz32(x):
+    """float64 -> float32 rounded toward zero: the tensor cores' float32
+    accumulation (a model of it)."""
+    y = x.to(torch.float32)
+    over = y.double().abs() > x.abs()
+    return torch.where(over, torch.nextafter(y, torch.zeros_like(y)), y)
+
+
+def _split(x):
+    """float32 x = hi + lo as the kernel splits it (tf32x3::split_tf32): hi
+    = x rounded to TF32 (its low 13 bits cleared after adding half of
+    their range), lo = x - hi rounded likewise, as the tensor cores read
+    the top 19 bits."""
+    keep = torch.tensor(-0x2000, dtype=torch.int32)   # ~0x1fff
+    hi = ((x.view(torch.int32) + 0x1000) & keep).view(torch.float32)
+    lo = (((x - hi).view(torch.int32) + 0x1000) & keep).view(torch.float32)
+    return hi, lo
+
+
+def _mma3(pairs):
+    """sum_j a[..., i, j] b[..., j, n] over every (a, b) of ``pairs`` as
+    csrc/fused_block.cu runs it: in k8 steps over j, each pair's three TF32
+    products lo*hi, hi*lo, hi*hi truncated into a float32 partial started
+    from zero, the step's partials summed and added to float32
+    accumulators, with rounding to nearest."""
+    split = [(_split(a), _split(b)) for a, b in pairs]
+    acc = None
+    for j in range(0, pairs[0][0].shape[-1], 8):
+        step = None
+        for (ah, al), (bh, bl) in split:
+            part = None
+            for x, y in ((al, bh), (ah, bl), (ah, bh)):
+                prod = x[..., j:j + 8].double() @ y[..., j:j + 8, :].double()
+                part = _rz32(prod if part is None else part.double() + prod)
+            step = part if step is None else step + part
+        acc = step if acc is None else acc + step
+    return acc
+
+
+def _emulated_kernel(z_re, z_im, bank, space, f, transfer, chunk=64,
+                     tm=128, parts=2):
+    """fused_block_reference with both mode contractions as the kernel's
+    3xTF32 products: the injections per chunk, hom per tile of tm modes
+    split into ``parts`` shares (partials added in order, then the tiles
+    in order); the recurrence, G and the convolution in float32."""
+    o, s = f.shape
+    c, k = chunk, s // chunk
+    tr, ti = (x.expand(o, -1, -1) for x in bank.chunk_tables(c))
+    be_re, be_im = bank.b_re * space, bank.b_im * space
+    t = transfer * bank.mask
+    frev = f.reshape(o, k, c).flip(-1).transpose(1, 2)    # [O, C(d), K]
+    inj_re = _mma3([(tr[:, :c].transpose(1, 2), frev)])  # [O, M, K]
+    inj_im = _mma3([(ti[:, :c].transpose(1, 2), frev)])
+    wa, wb = [], []
+    zr, zi = z_re, z_im
+    pcr, pci = tr[:, c], ti[:, c]
+    for x in range(k):
+        wa.append(t * zi)
+        wb.append(t * zr)
+        s_re, s_im = inj_re[..., x], inj_im[..., x]
+        zr, zi = (pcr * zr - pci * zi + be_re * s_re - be_im * s_im,
+                  pci * zr + pcr * zi + be_re * s_im + be_im * s_re)
+    wa, wb = torch.stack(wa, -1), torch.stack(wb, -1)     # [O, M, K]
+    hom = None
+    share = tm // parts
+    for m0 in range(0, tr.shape[-1], tm):
+        tile = None
+        for p in range(m0, m0 + tm, share):
+            ms = slice(p, p + share)
+            r = _mma3([(tr[:, 1:, ms], wa[:, ms]), (ti[:, 1:, ms], wb[:, ms])])
+            tile = r if tile is None else tile + r
+        hom = tile if hom is None else hom + tile           # [O, C, K]
+    g = ((tr[:, :c] * (t * be_im)[:, None]).sum(-1)
+         + (ti[:, :c] * (t * be_re)[:, None]).sum(-1))    # [O, C]
+    idx = torch.arange(c)
+    delta = idx[:, None] - idx[None, :]
+    toep = g[:, delta.clamp(min=0)] * (delta >= 0).to(g.dtype)
+    conv = torch.einsum("ocj,okj->okc", toep, f.reshape(o, k, c))
+    return zr, zi, hom.transpose(1, 2).reshape(o, s) + conv.reshape(o, s)
+
+
+def test_3xtf32_split_holds_the_fused_step_to_float32(dberr):
+    """The kernel's 3xTF32 products, emulated on the CPU at O=4, M=256,
+    S=512, C=64: <= -110 dB against the same step in float64, the bar the
+    kernel is held to against its FP32 twin on the card. (Splits by
+    truncation with eight-step chains read about -112 dB here: the sums
+    over modes amplify the products' error; one TF32 product about -58.)"""
+    _, tb, x = _case(4, 256, 512, hetero=True)
+    assert tb.num_modes == 256
+    zr, zi, sp, tp, tr = (torch.from_numpy(a) for a in x)
+    bank64 = ModalBank(**{name: getattr(tb, name).double() for name in (
+        "lam_re", "lam_im", "b_re", "b_im", "mask", "pow_re", "pow_im")})
+    ref = fi.fused_block_reference(*(a.double() for a in (zr, zi)), bank64,
+                                   *(a.double() for a in (sp, tp, tr)))
+    got = _emulated_kernel(zr, zi, tb, sp, tp, tr)
+    twin = fi.fused_block_reference(zr, zi, tb, sp, tp, tr)
+    for name, g, r, w in zip(("z_re", "z_im", "sound"), got, ref, twin):
+        assert g.dtype == torch.float32
+        assert dberr(g.numpy(), r.numpy()) <= -110, name
+        assert dberr(g.numpy(), w.numpy()) <= -110, name

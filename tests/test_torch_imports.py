@@ -22,7 +22,8 @@ from openpbso_tpu_torch.runtime.solver import SolverConfig
 from openpbso_tpu_torch.utils.synth import CERAMIC, synth_mode_data
 md = synth_mode_data(16, 4)
 bank = bank_from_material(CERAMIC.density, md.omega_squared, CERAMIC.alpha,
-                          CERAMIC.beta, num_objects=2, block_size=64)
+                          CERAMIC.beta, num_objects=2, block_size=64,
+                          device="cpu")
 sess = ModalSession(bank, config=SolverConfig(block_size=64, backend="pallas"))
 sess.hit(1, np.ones(16), kind="gaussian", width_us=300.0)
 mix = sess.render(2)

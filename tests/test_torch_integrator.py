@@ -47,7 +47,7 @@ def _jax_bank(o, n, s, hetero, tables=True):
 
 def _case(o=3, n=40, s=S, hetero=True, seed=1, tables=True):
     jb = _jax_bank(o, n, s, hetero, tables)
-    tb = bank_from_numpy(jax.tree.map(np.asarray, jb))
+    tb = bank_from_numpy(jax.tree.map(np.asarray, jb), device="cpu")
     m = jb.num_modes
     mask = np.asarray(jb.mask)
     rng = np.random.default_rng(seed)

@@ -56,8 +56,8 @@ def assets():
                              dtype=jnp.float32)
     maps = {i: synth_fatcube(i, 200.0 * (i + 1), n=6) for i in range(N)}
     jffat = build_ffat(maps, jbank.num_modes, dtype=jnp.float32)
-    tbank = bank_from_numpy(jax.tree.map(np.asarray, jbank))
-    tffat = ffat_from_numpy(jax.tree.map(np.asarray, jffat))
+    tbank = bank_from_numpy(jax.tree.map(np.asarray, jbank), device="cpu")
+    tffat = ffat_from_numpy(jax.tree.map(np.asarray, jffat), device="cpu")
     return jbank, jffat, tbank, tffat
 
 
@@ -240,7 +240,7 @@ def test_solver_routes_listener_and_complex_rows_to_blocked(assets, rows,
     j_state, _, j_mix, _ = j_step_block(st, jbank, jnp.asarray(gains),
                                         block_size=S, backend="pallas")
     t_state, _, t_mix, _ = t_step_block(
-        state_from_numpy(jax.tree.map(np.asarray, st)), tbank,
+        state_from_numpy(jax.tree.map(np.asarray, st), device="cpu"), tbank,
         torch.from_numpy(gains), block_size=S, backend="pallas")
     assert fused_integrator.LAUNCHES == 0
     # the session's bar: a mix sums O objects' rows after the mode reduce

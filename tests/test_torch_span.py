@@ -67,7 +67,7 @@ def banks():
     jb = bank_from_material(CERAMIC.density, md.omega_squared, CERAMIC.alpha,
                             CERAMIC.beta, num_objects=O, block_size=S,
                             dtype=jnp.float32)
-    out["shared"] = (jb, bank_from_numpy(_np(jb)), lam)
+    out["shared"] = (jb, bank_from_numpy(_np(jb), device="cpu"), lam)
     parts = [lambda_from_modes(CERAMIC.density, synth_mode_data(
         M, 8, seed=50 + i, f_low=80.0 + 7 * i,
         f_high=9000.0 + 100 * i).omega_squared, CERAMIC.alpha, CERAMIC.beta)
@@ -75,7 +75,7 @@ def banks():
     lam, b, v = (np.stack(x) for x in zip(*parts))
     jb = build_modal_bank(lam, b, v, block_size=S, shared=False,
                           dtype=jnp.float32)
-    out["hetero"] = (jb, bank_from_numpy(_np(jb)), lam)
+    out["hetero"] = (jb, bank_from_numpy(_np(jb), device="cpu"), lam)
     return out
 
 
@@ -88,7 +88,7 @@ def _radix(n_blocks):
 def _tables(lam64, bank, n_blocks):
     kw = dict(num_modes=bank.num_modes, radix=_radix(n_blocks))
     return (js.build_span_tables(lam64, n_blocks * S, **kw),
-            ts.build_span_tables(lam64, n_blocks * S, **kw))
+            ts.build_span_tables(lam64, n_blocks * S, device="cpu", **kw))
 
 
 def _seeded_state(bank, n_blocks, rows="plain", seed=0):
@@ -119,7 +119,7 @@ def _seeded_state(bank, n_blocks, rows="plain", seed=0):
     if rows == "complex":
         st = dataclasses.replace(st, transfer_im=f32(
             rng.uniform(-1.0, 1.0, (o, m))))
-    return st, state_from_numpy(_np(st))
+    return st, state_from_numpy(_np(st), device="cpu")
 
 
 def _gains(st):
@@ -149,7 +149,7 @@ def test_span_tables_bitwise_equal_jax(banks, layout, n_blocks):
     for got, ref in ((tt.b_re, jt.b_re), (tt.b_im, jt.b_im)):
         assert got.dtype == torch.float32
         np.testing.assert_array_equal(got.numpy(), np.asarray(ref))
-    conv = span_tables_from_numpy(_np(jt))
+    conv = span_tables_from_numpy(_np(jt), device="cpu")
     assert conv.n_chunks == tt.n_chunks
     assert torch.equal(conv.b_re, tt.b_re) and torch.equal(conv.b_im,
                                                            tt.b_im)
@@ -160,12 +160,13 @@ def test_other_span_forms_are_refused(banks, form):
     _, tbank, lam64 = banks["shared"]
     with pytest.raises(ValueError, match="chunked form only"):
         ts.build_span_tables(lam64, 8 * S, num_modes=tbank.num_modes,
-                             form=form)
+                             form=form, device="cpu")
 
 
 def test_integrate_span_refuses_tables_of_another_length(banks):
     _, tbank, lam64 = banks["shared"]
-    tt = ts.build_span_tables(lam64, 2 * S, num_modes=tbank.num_modes)
+    tt = ts.build_span_tables(lam64, 2 * S, num_modes=tbank.num_modes,
+                              device="cpu")
     z = torch.zeros((O, tbank.num_modes))
     with pytest.raises(ValueError, match="built for 128 samples, got 192"):
         ts.integrate_span(z, z, tbank, tt, z[:, None],
@@ -238,7 +239,7 @@ def test_chunk_scan_twin_matches_jax_scan(banks, layout, decay, dberr):
     jt = js.build_span_tables(lam64, 8 * S, num_modes=jbank.num_modes,
                               radix=S // 2)
     assert jt.superchunk == 1 and jt.n_chunks == 16
-    tt = span_tables_from_numpy(_np(jt))
+    tt = span_tables_from_numpy(_np(jt), device="cpu")
     z, inj = _scan_inputs(tt, decay)
     ref = js._chunk_start_states(
         jnp.asarray(z[0]), jnp.asarray(z[1]),
@@ -370,7 +371,7 @@ def test_span_matches_port_block_steps(banks, layout, backend, dberr):
     _, tbank, lam64 = banks[layout]
     n_blocks = 8
     tt = ts.build_span_tables(lam64, n_blocks * S,
-                              num_modes=tbank.num_modes)
+                              num_modes=tbank.num_modes, device="cpu")
     _, state = _seeded_state(banks[layout][0], n_blocks)
     _, gains = _gains(state)
     ref_state, ref_mix = tsolver.step_multi(state, tbank, gains,
@@ -394,7 +395,8 @@ def test_span_matches_port_block_steps(banks, layout, backend, dberr):
 def test_two_spans_match_step_multi(banks, layout, dberr):
     """The state carried across a span boundary keeps the stream seamless."""
     _, tbank, lam64 = banks[layout]
-    tt = ts.build_span_tables(lam64, 4 * S, num_modes=tbank.num_modes)
+    tt = ts.build_span_tables(lam64, 4 * S, num_modes=tbank.num_modes,
+                              device="cpu")
     _, state = _seeded_state(banks[layout][0], 8)
     _, gains = _gains(state)
     st, first = tsolver.step_span(state, tbank, tt, gains, n_blocks=4,
@@ -433,7 +435,8 @@ def session_assets(banks):
     jbank, tbank, lam64 = banks["hetero"]
     maps = {i: synth_fatcube(i, 200.0 * (i + 1), n=6) for i in range(M)}
     jffat = build_ffat(maps, jbank.num_modes, dtype=jnp.float32)
-    return jbank, tbank, lam64, jffat, ffat_from_numpy(_np(jffat))
+    return (jbank, tbank, lam64, jffat,
+            ffat_from_numpy(_np(jffat), device="cpu"))
 
 
 def _t_session(session_assets, lam64=True, **cfg):
@@ -509,7 +512,8 @@ def test_session_builds_and_caches_span_tables(session_assets):
     _, tbank, lam64, _, _ = session_assets
     sess = _t_session(session_assets)
     tables = sess.span_tables_for(4)
-    ref = ts.build_span_tables(lam64, 4 * S, num_modes=tbank.num_modes)
+    ref = ts.build_span_tables(lam64, 4 * S, num_modes=tbank.num_modes,
+                               device="cpu")
     assert torch.equal(tables.b_re, ref.b_re)
     assert torch.equal(tables.b_im, ref.b_im)
     assert (tables.chunk, tables.n_chunks) == (ref.chunk, ref.n_chunks)

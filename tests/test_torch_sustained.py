@@ -71,7 +71,7 @@ def _one_torch_thread():
 @pytest.mark.parametrize("seed", [0, 1, 12345])
 def test_keys_fold_in_and_bits_bitwise_equal_jax(seed):
     jkeys = np.asarray(jf.make_sustained_state(O, M, seed=seed).key)
-    tkeys = tf.make_sustained_state(O, M, seed=seed).key
+    tkeys = tf.make_sustained_state(O, M, seed=seed, device="cpu").key
     assert tkeys.dtype == torch.int64
     np.testing.assert_array_equal(tkeys.numpy(), jkeys.astype(np.int64))
     for o in range(O):
@@ -265,12 +265,12 @@ def scene():
         .at[2, :4].set(jnp.asarray(rng.standard_normal(4), jnp.float32)))
     st = dataclasses.replace(st, slots=slots, sustained=sus, transfer=(
         jnp.asarray(rng.uniform(0.5, 2.0, (O, m)), jnp.float32)))
-    return jbank, bank_from_numpy(_np(jbank)), lam64, st
+    return jbank, bank_from_numpy(_np(jbank), device="cpu"), lam64, st
 
 
 def test_state_from_numpy_carries_an_active_channel(scene):
     _, _, _, jst = scene
-    tst = state_from_numpy(_np(jst))
+    tst = state_from_numpy(_np(jst), device="cpu")
     for f in dataclasses.fields(tf.SustainedState):
         want = np.asarray(getattr(jst.sustained, f.name))
         got = getattr(tst.sustained, f.name).numpy()
@@ -281,7 +281,7 @@ def test_state_from_numpy_carries_an_active_channel(scene):
 @pytest.mark.parametrize("backend", ["blocked", "fused"])
 def test_step_block_with_sustained_matches_jax(scene, backend, dberr):
     jbank, tbank, _, jst = scene
-    tst = state_from_numpy(_np(jst))
+    tst = state_from_numpy(_np(jst), device="cpu")
     gains = np.ones((O, 2), np.float32)
     for _ in range(3):
         jst, _, j_mix, _ = jsolver.step_block(jst, jbank, jnp.asarray(gains),
@@ -317,8 +317,8 @@ def test_step_span_with_sustained_matches_jax(scene, num_slots, per_object,
         num_slots=num_slots, with_sustained=True,
         ar_g=jnp.asarray(g, jnp.float32))
     t_st, t_mix = tsolver.step_span(
-        state_from_numpy(_np(jst)), tbank,
-        t_tables(lam64, n_blocks * S, num_modes=tbank.num_modes),
+        state_from_numpy(_np(jst), device="cpu"), tbank,
+        t_tables(lam64, n_blocks * S, num_modes=tbank.num_modes, device="cpu"),
         torch.from_numpy(gains), n_blocks=n_blocks, block_size=S,
         num_slots=num_slots, with_sustained=True,
         ar_g=torch.as_tensor(g).float())
@@ -333,8 +333,8 @@ def test_span_gates_the_slots_of_a_dragged_object(scene):
     """Replace semantics (modal_solver.h:195-204): object 0's slot is gated
     off while it drags, so dropping the slot changes nothing."""
     _, tbank, lam64, jst = scene
-    tst = state_from_numpy(_np(jst))
-    tables = t_tables(lam64, 4 * S, num_modes=tbank.num_modes)
+    tst = state_from_numpy(_np(jst), device="cpu")
+    tables = t_tables(lam64, 4 * S, num_modes=tbank.num_modes, device="cpu")
     g = torch.as_tensor(tf.ar_impulse_g((0.783, 0.116), 4 * S)).float()
     gains = torch.ones((O, 2))
     _, mix = tsolver.step_span(tst, tbank, tables, gains, n_blocks=4,
