@@ -25,7 +25,8 @@ import torch
 import torch.nn.functional as F
 
 from .coeffs import ModalBank
-from .integrator import _QNORM_NOT_PORTED, _weighted_gather
+from .integrator import (_check_tables, _qnorm_blocked,
+                         _weighted_gather)
 
 DEFAULT_CHUNK = 64
 # dynamic shared memory a block may use on sm_90, less 1 KB for the
@@ -194,11 +195,15 @@ def step_block_fused(
 
     Needs bank lam-power tables of length >= chunk+1. CUDA tensors launch
     the kernel (a failed build or launch raises); CPU tensors run the plain
-    twin. Returns (z_re', z_im', sound [O, S], None).
+    twin. Returns (z_re', z_im', sound [O, S], qnorm [O, M] | None).
+
+    ``compute_qnorm`` leaves the step to the kernel and takes the telemetry
+    from the blocked form on the same inputs (its qnorm term alone, the
+    value step_block_blocked returns), which is the routing of
+    step_block_pallas (openpbso_tpu/ops/pallas_integrator.py:207-211): the
+    per-mode energies need the full-block tables, not the chunk prefix.
     """
     global LAUNCHES
-    if compute_qnorm:
-        raise NotImplementedError(_QNORM_NOT_PORTED)
     chunk = _check_block(bank, time_profile.shape[-1], chunk, transfer_im)
     if z_re.is_cuda:
         out = _launch(z_re, z_im, bank, space, time_profile, transfer, chunk)
@@ -208,7 +213,12 @@ def step_block_fused(
                                     transfer, chunk)
     else:
         raise ValueError(f"no fused kernel for device {z_re.device}")
-    return (*out, None)
+    qnorm = None
+    if compute_qnorm:
+        _check_tables(bank, time_profile.shape[-1])
+        qnorm = _qnorm_blocked(bank, bank.b_re * space, bank.b_im * space,
+                               time_profile, z_re, z_im)
+    return (*out, qnorm)
 
 
 def register_backend():

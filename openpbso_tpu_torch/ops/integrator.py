@@ -22,18 +22,20 @@ Backends:
   (ops/fused_integrator.py); ``pallas`` is accepted as its name so that
   configurations written for the JAX package keep working.
 
-Per-mode energy telemetry (qnorm) and the transfer-ramp (xfade) variants
-are not ported yet; ``compute_qnorm=True`` raises.
+``compute_qnorm=True`` adds the per-mode energy telemetry
+
+    qnorm_m  = sqrt(sum_s q_s[m]^2)                  (modal_solver.h:270-272)
+
+which in the blocked form is the one term that materialises per-mode,
+per-sample values ([O, M, S] and its FFTs), so it is computed only on
+request. The ``*_xfade`` variants ramp the transfer row linearly across the
+block (a listener move without the level step of a block-constant row).
 """
 from __future__ import annotations
 
 import torch
 
 from .coeffs import ModalBank
-
-_QNORM_NOT_PORTED = ("qnorm telemetry is not ported yet "
-                     "(ROADMAP.md Queue 1 item 3: xfade and qnorm)")
-
 
 def _complex_weights(t_re, t_im, v_re, v_im):
     """Reduce-channel weights of Im(t * P * v) for a possibly complex
@@ -88,14 +90,14 @@ def step_block_scan(
     compute_qnorm: bool = False,
     transfer_im: torch.Tensor | None = None,
 ):
-    """Per-sample loop. Returns (z_re, z_im, sound [(L,) O, S], None)."""
-    if compute_qnorm:
-        raise NotImplementedError(_QNORM_NOT_PORTED)
+    """Per-sample loop. Returns (z_re, z_im, sound [(L,) O, S],
+    qnorm [O, M] | None)."""
     be_re = bank.b_re * space
     be_im = bank.b_im * space
     tmask = transfer * bank.mask
     timask = None if transfer_im is None else transfer_im * bank.mask
     sound = []
+    qsq = torch.zeros_like(z_im) if compute_qnorm else None
     for f_s in time_profile.unbind(dim=-1):
         f_s = f_s[:, None]
         z_re, z_im = (bank.lam_re * z_re - bank.lam_im * z_im + be_re * f_s,
@@ -104,7 +106,62 @@ def step_block_scan(
         if timask is not None:
             snd = snd + (timask * z_re).sum(dim=-1)
         sound.append(snd)
-    return z_re, z_im, torch.stack(sound, dim=-1), None
+        if compute_qnorm:
+            qsq = qsq + z_im * z_im
+    qnorm = torch.sqrt(qsq) if compute_qnorm else None
+    return z_re, z_im, torch.stack(sound, dim=-1), qnorm
+
+
+def _check_tables(bank: ModalBank, s: int) -> None:
+    if bank.pow_re is None or bank.pow_re.shape[-1] != s + 1:
+        raise ValueError("bank tables missing or built for a different "
+                         "block size")
+
+
+def _render_blocked(bank, w, wi, z_re, z_im, be_re, be_im, time_profile):
+    """sound [(L,) O, S] of the blocked form for masked weight rows
+    ``w`` (+ i ``wi``): the homogeneous term plus the causal convolution
+    of the time profile with G."""
+    s = time_profile.shape[-1]
+    pr, pi = bank.pow_re, bank.pow_im           # [Og, M, S+1]
+    wz_pr, wz_pi = _complex_weights(w, wi, z_re, z_im)
+    hom = (_mode_reduce(wz_pr, pr[..., 1:])
+           + _mode_reduce(wz_pi, pi[..., 1:]))
+    wg_pr, wg_pi = _complex_weights(w, wi, be_re, be_im)
+    g = (_mode_reduce(wg_pi, pi[..., :s])
+         + _mode_reduce(wg_pr, pr[..., :s]))
+    return hom + _causal_conv_fft(g, time_profile)
+
+
+def _advance_blocked(bank, z_re, z_im, be_re, be_im, time_profile):
+    """z_out = lam^S z_{-1} + b space sum_j lam^{S-1-j} time_j."""
+    s = time_profile.shape[-1]
+    pr, pi = bank.pow_re, bank.pow_im
+    f_rev = time_profile.flip(-1)
+    c_re = _weighted_gather(pr[..., :s], f_rev)
+    c_im = _weighted_gather(pi[..., :s], f_rev)
+    ps_re, ps_im = pr[..., s], pi[..., s]
+    z_re_out = ps_re * z_re - ps_im * z_im + be_re * c_re - be_im * c_im
+    z_im_out = ps_im * z_re + ps_re * z_im + be_re * c_im + be_im * c_re
+    return z_re_out, z_im_out
+
+
+def _qnorm_blocked(bank, be_re, be_im, time_profile, z_re, z_im):
+    """Per-mode energy over the block: the homogeneous part plus the
+    per-mode causal convolution of the time profile with the mode's impulse
+    kernel Im(lam^d b space). Independent of the transfer, so the plain and
+    the xfade blocked steps share it. Materialises [O, M, S] and its
+    length-2S FFTs (about 3.8 GB of float32 at 256 x 1024 x 512)."""
+    s = time_profile.shape[-1]
+    n = 2 * s
+    pr, pi = bank.pow_re, bank.pow_im
+    ker = be_re[..., None] * pi[..., :s] + be_im[..., None] * pr[..., :s]
+    kf = torch.fft.rfft(ker, n=n, dim=-1)
+    ff = torch.fft.rfft(time_profile, n=n, dim=-1)[:, None, :]
+    conv = torch.fft.irfft(kf * ff, n=n, dim=-1)[..., :s].to(z_re.dtype)
+    q = (pr[..., 1:] * z_im[..., None] + pi[..., 1:] * z_re[..., None]
+         + conv)
+    return torch.sqrt((q * q).sum(dim=-1)) * bank.mask
 
 
 def step_block_blocked(
@@ -118,34 +175,120 @@ def step_block_blocked(
     transfer_im: torch.Tensor | None = None,
 ):
     """Block-form backend (needs bank lam-power tables of size S+1)."""
-    if compute_qnorm:
-        raise NotImplementedError(_QNORM_NOT_PORTED)
-    s = time_profile.shape[-1]
-    if bank.pow_re is None or bank.pow_re.shape[-1] != s + 1:
-        raise ValueError("bank tables missing or built for a different "
-                         "block size")
-    pr, pi = bank.pow_re, bank.pow_im           # [Og, M, S+1]
+    _check_tables(bank, time_profile.shape[-1])
     be_re = bank.b_re * space
     be_im = bank.b_im * space
     tmask = transfer * bank.mask
     timask = None if transfer_im is None else transfer_im * bank.mask
+    sound = _render_blocked(bank, tmask, timask, z_re, z_im, be_re, be_im,
+                            time_profile)
+    z_re_out, z_im_out = _advance_blocked(bank, z_re, z_im, be_re, be_im,
+                                          time_profile)
+    qnorm = (_qnorm_blocked(bank, be_re, be_im, time_profile, z_re, z_im)
+             if compute_qnorm else None)
+    return z_re_out, z_im_out, sound, qnorm
 
-    wz_pr, wz_pi = _complex_weights(tmask, timask, z_re, z_im)
-    hom = (_mode_reduce(wz_pr, pr[..., 1:])
-           + _mode_reduce(wz_pi, pi[..., 1:]))
-    wg_pr, wg_pi = _complex_weights(tmask, timask, be_re, be_im)
-    g = (_mode_reduce(wg_pi, pi[..., :s])
-         + _mode_reduce(wg_pr, pr[..., :s]))
-    sound = hom + _causal_conv_fft(g, time_profile)
 
-    # z_out = lam^S z_{-1} + b space sum_j lam^{S-1-j} time_j
-    f_rev = time_profile.flip(-1)
-    c_re = _weighted_gather(pr[..., :s], f_rev)
-    c_im = _weighted_gather(pi[..., :s], f_rev)
-    ps_re, ps_im = pr[..., s], pi[..., s]
-    z_re_out = ps_re * z_re - ps_im * z_im + be_re * c_re - be_im * c_im
-    z_im_out = ps_im * z_re + ps_re * z_im + be_re * c_im + be_im * c_re
-    return z_re_out, z_im_out, sound, None
+def _xfade_rows(transfer_prev, transfer, transfer_prev_im, transfer_im,
+                mask):
+    """(t0_re, dt_re, t0_im | None, dt_im | None) of the ramped transfer.
+
+    A complex xfade ramps the real and the imaginary rows independently:
+    the output is linear in both, so the ramped complex dot still splits
+    into two constant-weight renders. A side without an imaginary row ramps
+    from or to zero phase."""
+    t0 = transfer_prev * mask
+    dt = (transfer - transfer_prev) * mask
+    if transfer_prev_im is None and transfer_im is None:
+        return t0, dt, None, None
+    pim = (torch.zeros_like(transfer_prev) if transfer_prev_im is None
+           else transfer_prev_im)
+    nim = torch.zeros_like(transfer) if transfer_im is None else transfer_im
+    return t0, dt, pim * mask, (nim - pim) * mask
+
+
+def _ramp(time_profile: torch.Tensor) -> torch.Tensor:
+    """(s+1)/S for s in [0, S), in the profile's dtype and on its device."""
+    s = time_profile.shape[-1]
+    return torch.arange(1, s + 1, dtype=time_profile.dtype,
+                        device=time_profile.device) / s
+
+
+def step_block_scan_xfade(
+    z_re: torch.Tensor,
+    z_im: torch.Tensor,
+    bank: ModalBank,
+    space: torch.Tensor,
+    time_profile: torch.Tensor,
+    transfer_prev: torch.Tensor,   # [O, M] transfer at the block start
+    transfer: torch.Tensor,        # [O, M] transfer at the block end
+    compute_qnorm: bool = False,
+    transfer_prev_im: torch.Tensor | None = None,
+    transfer_im: torch.Tensor | None = None,
+):
+    """The scan backend with the transfer row interpolated per sample.
+
+    The reference holds the transfer constant per block (computeTransfer
+    consumes one listener update per block), which steps the output level
+    when the listener moves fast. Here the row ramps linearly across the
+    block: t(s) = t_prev + (s+1)/S (t_new - t_prev). Complex rows ramp re
+    and im independently.
+    """
+    be_re = bank.b_re * space
+    be_im = bank.b_im * space
+    t0, dt, t0i, dti = _xfade_rows(transfer_prev, transfer,
+                                   transfer_prev_im, transfer_im, bank.mask)
+    sound = []
+    qsq = torch.zeros_like(z_im) if compute_qnorm else None
+    for f_s, w in zip(time_profile.unbind(dim=-1), _ramp(time_profile)):
+        f_s = f_s[:, None]
+        z_re, z_im = (bank.lam_re * z_re - bank.lam_im * z_im + be_re * f_s,
+                      bank.lam_im * z_re + bank.lam_re * z_im + be_im * f_s)
+        snd = ((t0 + w * dt) * z_im).sum(dim=-1)
+        if t0i is not None:
+            snd = snd + ((t0i + w * dti) * z_re).sum(dim=-1)
+        sound.append(snd)
+        if compute_qnorm:
+            qsq = qsq + z_im * z_im
+    qnorm = torch.sqrt(qsq) if compute_qnorm else None
+    return z_re, z_im, torch.stack(sound, dim=-1), qnorm
+
+
+def step_block_blocked_xfade(
+    z_re: torch.Tensor,
+    z_im: torch.Tensor,
+    bank: ModalBank,
+    space: torch.Tensor,
+    time_profile: torch.Tensor,
+    transfer_prev: torch.Tensor,
+    transfer: torch.Tensor,
+    compute_qnorm: bool = False,
+    transfer_prev_im: torch.Tensor | None = None,
+    transfer_im: torch.Tensor | None = None,
+):
+    """The blocked backend with the transfer row interpolated per sample.
+
+    The output is linear in the transfer weights, so the ramped dot splits
+    into two constant-weight renders, sound_s = <t_prev, q_s> + ramp_s
+    <dt, q_s>: the blocked render for both weight rows plus one elementwise
+    ramp. The state update does not depend on the transfer and is that of
+    step_block_blocked.
+    """
+    _check_tables(bank, time_profile.shape[-1])
+    be_re = bank.b_re * space
+    be_im = bank.b_im * space
+    t0, dt, t0i, dti = _xfade_rows(transfer_prev, transfer,
+                                   transfer_prev_im, transfer_im, bank.mask)
+    sound = (_render_blocked(bank, t0, t0i, z_re, z_im, be_re, be_im,
+                             time_profile)
+             + _ramp(time_profile)
+             * _render_blocked(bank, dt, dti, z_re, z_im, be_re, be_im,
+                               time_profile))
+    z_re_out, z_im_out = _advance_blocked(bank, z_re, z_im, be_re, be_im,
+                                          time_profile)
+    qnorm = (_qnorm_blocked(bank, be_re, be_im, time_profile, z_re, z_im)
+             if compute_qnorm else None)
+    return z_re_out, z_im_out, sound, qnorm
 
 
 def decay_block_blocked(
@@ -159,8 +302,6 @@ def decay_block_blocked(
     """Homogeneous-only block step (no forces): ``step_block_blocked`` with
     a zero excitation, whose convolution and injection terms vanish. The
     host decides eligibility (every force slot expired)."""
-    if compute_qnorm:
-        raise NotImplementedError(_QNORM_NOT_PORTED)
     s = bank.pow_re.shape[-1] - 1
     pr, pi = bank.pow_re, bank.pow_im
     tmask = transfer * bank.mask
@@ -171,7 +312,11 @@ def decay_block_blocked(
     ps_re, ps_im = pr[..., s], pi[..., s]
     z_re_out = ps_re * z_re - ps_im * z_im
     z_im_out = ps_im * z_re + ps_re * z_im
-    return z_re_out, z_im_out, sound, None
+    qnorm = None
+    if compute_qnorm:
+        q = pr[..., 1:] * z_im[..., None] + pi[..., 1:] * z_re[..., None]
+        qnorm = torch.sqrt((q * q).sum(dim=-1)) * bank.mask
+    return z_re_out, z_im_out, sound, qnorm
 
 
 BACKENDS = {

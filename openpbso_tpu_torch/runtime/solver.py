@@ -7,11 +7,14 @@ ModalSolver::step, modal_solver.h:181-276, does one object):
    (space [O, M], time [O, S]), modal_solver.h:206-240;
 2. modal integration: z' = lam z + b Q and per-object sound = q . transfer
    through the chosen backend (ops/integrator.py), modal_solver.h:262-271;
-3. mixdown over objects with per-object gains, divided by OUTPUT_SCALE.
+3. on request the per-mode energy telemetry qnorm, modal_solver.h:270-273;
+4. mixdown over objects with per-object gains, divided by OUTPUT_SCALE.
 
 The span entries (``step_span``, ``step_span_sound``, ``decay_span_step``)
 advance many blocks in one dispatch through ops/span.py; ``step_multi`` is
-the block-by-block loop they replace where a span does not fit.
+the block-by-block loop they replace where a span does not fit, and
+``step_multi_transfers`` is that loop with one transfer row per block (a
+moving listener).
 
 ``with_sustained=False`` skips the sustained channel (the host knows when
 every channel is inactive; the skipped terms are exact zeros).
@@ -28,7 +31,8 @@ from ..ops.coeffs import ModalBank
 from ..ops.forces import (force_block, force_span, sustained_block,
                           sustained_span)
 from ..ops.integrator import (decay_block_blocked, get_backend,
-                              resolve_backend_name)
+                              resolve_backend_name, step_block_blocked_xfade,
+                              step_block_scan_xfade)
 from ..ops.span import ChunkSpanTables, decay_span, integrate_span
 from .state import SolverState
 
@@ -73,11 +77,15 @@ def _step_block_impl(
     compute_qnorm: bool,
     num_slots: int | None = None,
     with_sustained: bool = True,
+    transfer_prev: torch.Tensor | None = None,
+    transfer_prev_im: torch.Tensor | None = None,
 ):
     """Core block step. ``num_slots`` slices the force-slot table to its
     first k slots when the host expiry mirror proves the rest can no
     longer produce; ``with_sustained=False`` skips the AR(2) channel when
     the host mirror proves every channel inactive (both output-invariant).
+    ``transfer_prev`` selects the transfer-interpolating variant: the row
+    ramps linearly from it to state.transfer across the block.
     """
     slots = state.slots
     if num_slots is not None and num_slots < slots.num_slots:
@@ -100,10 +108,23 @@ def _step_block_impl(
         # neither; the blocked form handles both
         if resolve_backend_name(backend, bank) == "fused":
             backend = "blocked"
-    integrate = get_backend(backend, bank)
-    z_re, z_im, sound, qnorm = integrate(
-        state.z_re, state.z_im, bank, space, time_profile, state.transfer,
-        compute_qnorm, transfer_im=state.transfer_im)
+    if transfer_prev is None:
+        integrate = get_backend(backend, bank)
+        z_re, z_im, sound, qnorm = integrate(
+            state.z_re, state.z_im, bank, space, time_profile,
+            state.transfer, compute_qnorm, transfer_im=state.transfer_im)
+    else:
+        # the reference's routing (openpbso_tpu/runtime/solver.py:138-143):
+        # only the scan has a ramped form of its own; every table-form
+        # backend, the fused kernel included, ramps through the blocked form
+        name = resolve_backend_name(backend, bank)
+        fn = (step_block_scan_xfade if name == "scan"
+              else step_block_blocked_xfade)
+        z_re, z_im, sound, qnorm = fn(
+            state.z_re, state.z_im, bank, space, time_profile,
+            transfer_prev, state.transfer, compute_qnorm,
+            transfer_prev_im=transfer_prev_im,
+            transfer_im=state.transfer_im)
     mix = _mixdown(sound, gains)
     new_state = dataclasses.replace(
         state, z_re=z_re, z_im=z_im, sustained=sus,
@@ -126,6 +147,33 @@ def step_block(
     return _step_block_impl(state, bank, gains, block_size, backend,
                             compute_qnorm, num_slots=num_slots,
                             with_sustained=with_sustained)
+
+
+def step_block_xfade(
+    state: SolverState,
+    bank: ModalBank,
+    gains: torch.Tensor,
+    transfer_prev: torch.Tensor,   # [O, M] transfer before the listener moved
+    *,
+    block_size: int = DEFAULT_BLOCK,
+    backend: str = "blocked",
+    compute_qnorm: bool = False,
+    with_sustained: bool = True,
+    num_slots: int | None = None,
+    transfer_prev_im: torch.Tensor | None = None,
+) -> tuple[SolverState, torch.Tensor, torch.Tensor, torch.Tensor | None]:
+    """One block with the transfer ramping linearly from ``transfer_prev``
+    to ``state.transfer``: the session takes it for the one block after a
+    listener move when SolverConfig.smooth_transfer is on, which removes
+    the level step of the reference's block-constant transfer
+    (modal_solver.h:286-300). Complex rows ramp re and im independently
+    (``transfer_prev_im`` is the outgoing imaginary row, None = zero
+    phase)."""
+    return _step_block_impl(state, bank, gains, block_size, backend,
+                            compute_qnorm, num_slots=num_slots,
+                            with_sustained=with_sustained,
+                            transfer_prev=transfer_prev,
+                            transfer_prev_im=transfer_prev_im)
 
 
 def decay_block(
@@ -172,6 +220,86 @@ def step_multi(
                                             with_sustained=with_sustained)
         mixes.append(mix)
     return state, torch.cat(mixes, dim=0)
+
+
+def _multi_transfers(state, bank, gains, transfers, block_size, backend,
+                     smooth, with_sustained, num_slots, want_sound):
+    """The loop of step_multi_transfers(_sound): block i renders with
+    ``transfers[i]`` and carries (state, previous row); a ramp from an
+    unchanged row is exactly the constant-transfer render. Returns
+    (state', the per-block mixes or sounds)."""
+    prev = state.transfer
+    outs = []
+    for tr in transfers.unbind(dim=0):
+        state = dataclasses.replace(state, transfer=tr)
+        state, sound, mix, _ = _step_block_impl(
+            state, bank, gains, block_size, backend, False,
+            num_slots=num_slots, with_sustained=with_sustained,
+            transfer_prev=prev if smooth else None)
+        prev = tr
+        outs.append(sound if want_sound else mix)
+    return state, outs
+
+
+def step_multi_transfers(
+    state: SolverState,
+    bank: ModalBank,
+    gains: torch.Tensor,
+    transfers: torch.Tensor,      # [n_blocks, O, M] per-block transfer rows
+    *,
+    n_blocks: int,
+    block_size: int = DEFAULT_BLOCK,
+    backend: str = "blocked",
+    smooth: bool = False,
+    with_sustained: bool = True,
+    num_slots: int | None = None,
+) -> tuple[SolverState, torch.Tensor]:
+    """Moving-listener multi-block call: block i renders with
+    ``transfers[i]``.
+
+    The reference recomputes the transfer once per listener move and holds
+    it block-constant (modal_solver.h:286-300). ``smooth=True`` ramps each
+    block linearly from the previous block's row (the session's
+    smooth_transfer semantics: continuous motion, no level steps); False
+    holds each row block-constant like the reference. Returns
+    (state', mix [N, C])."""
+    if transfers.shape[0] != n_blocks:
+        raise ValueError(f"expected {n_blocks} transfer rows, got "
+                         f"{transfers.shape[0]}")
+    state, mixes = _multi_transfers(state, bank, gains, transfers,
+                                    block_size, backend, smooth,
+                                    with_sustained, num_slots, False)
+    return state, torch.cat(mixes, dim=0)
+
+
+def step_multi_transfers_sound(
+    state: SolverState,
+    bank: ModalBank,
+    transfers: torch.Tensor,      # [n_blocks, O, M] per-block transfer rows
+    *,
+    n_blocks: int,
+    block_size: int = DEFAULT_BLOCK,
+    backend: str = "blocked",
+    smooth: bool = False,
+    with_sustained: bool = True,
+    num_slots: int | None = None,
+) -> tuple[SolverState, torch.Tensor]:
+    """step_multi_transfers returning the raw per-object sound instead of
+    the mix: (state', sound [O, n_blocks*S]), or with listener row stacks
+    ``transfers`` [n_blocks, L, O, M] the per-listener sounds
+    [L, O, n_blocks*S]. For stages that work on each object's signal before
+    the channel mixdown (a propagation-delay resample)."""
+    if transfers.shape[0] != n_blocks:
+        raise ValueError(f"expected {n_blocks} transfer rows, got "
+                         f"{transfers.shape[0]}")
+    gains_dummy = state.z_re.new_zeros((state.z_re.shape[0], 1))
+    if transfers.dim() == 4:
+        gains_dummy = state.z_re.new_zeros((state.z_re.shape[0],
+                                            transfers.shape[1]))
+    state, sounds = _multi_transfers(state, bank, gains_dummy, transfers,
+                                     block_size, backend, smooth,
+                                     with_sustained, num_slots, True)
+    return state, torch.cat(sounds, dim=-1)
 
 
 def _span_channels(state: SolverState, n_blocks: int, block_size: int,

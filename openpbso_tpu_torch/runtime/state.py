@@ -61,3 +61,41 @@ def make_solver_state(
         transfer=torch.full((o, m), fill, dtype=dtype, device=device),
         block_start=0,
     )
+
+
+def state_leaves(state) -> list:
+    """The leaves of a state dataclass: its fields in declaration order,
+    nested dataclasses walked in place, ``None`` fields skipped (the order
+    jax.tree.flatten gives the JAX package's state). Tensors and the
+    integer block clock alike."""
+    leaves = []
+    for f in dataclasses.fields(state):
+        v = getattr(state, f.name)
+        if v is None:
+            continue
+        if dataclasses.is_dataclass(v):
+            leaves.extend(state_leaves(v))
+        else:
+            leaves.append(v)
+    return leaves
+
+
+def map_state(fn, state):
+    """A copy of ``state`` with ``fn`` applied to every leaf, in the order
+    of state_leaves."""
+    changes = {}
+    for f in dataclasses.fields(state):
+        v = getattr(state, f.name)
+        if v is None:
+            continue
+        changes[f.name] = (map_state(fn, v) if dataclasses.is_dataclass(v)
+                           else fn(v))
+    return dataclasses.replace(state, **changes)
+
+
+def clone_state(state: SolverState) -> SolverState:
+    """A deep copy: every tensor cloned. The session writes force slots and
+    the sustained channel in place, so a snapshot that must survive later
+    events cannot be an alias."""
+    return map_state(
+        lambda v: v.clone() if isinstance(v, torch.Tensor) else v, state)

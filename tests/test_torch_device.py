@@ -112,6 +112,28 @@ def test_resolve_device(no_gpu):
     assert resolve_device(torch.device("cpu")) == torch.device("cpu")
 
 
+def test_engine_follows_its_sessions_bank(no_gpu):
+    """The engine has no device of its own: a session is built over a bank,
+    a bank built without ``device`` raises here, and an engine over a CPU
+    session streams on the CPU."""
+    from openpbso_tpu_torch.runtime import RawCollectorSink, StreamingEngine
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        StreamingEngine(ModalSession(build_modal_bank(*_lam(), block_size=8),
+                                     config=SolverConfig(block_size=8)),
+                        RawCollectorSink())
+    sess = ModalSession(_cpu_bank(), config=SolverConfig(block_size=8))
+    engine = StreamingEngine(sess, RawCollectorSink())
+    engine.hit(0, np.ones(M))
+    engine.start()
+    import time
+    deadline = time.time() + 120
+    while engine._blocks_done < 4 and time.time() < deadline:
+        time.sleep(0.01)
+    engine.stop()
+    assert engine.error is None and engine._blocks_done >= 4
+    assert all(t.device.type == "cpu" for t in _tensors(sess.state))
+
+
 def test_session_follows_its_bank():
     sess = ModalSession(_cpu_bank(), config=SolverConfig(block_size=8))
     assert sess.device.type == "cpu"

@@ -28,6 +28,26 @@ sess = ModalSession(bank, config=SolverConfig(block_size=64, backend="pallas"))
 sess.hit(1, np.ones(16), kind="gaussian", width_us=300.0)
 mix = sess.render(2)
 assert mix.shape == (128, 2) and np.abs(mix).max() > 0
+# the live path: an engine stream with qnorm, a snapshot, a trace
+import os, tempfile, time
+from openpbso_tpu_torch.runtime import (RawCollectorSink, StreamingEngine,
+                                        load_session, save_session)
+from openpbso_tpu_torch.runtime.profiling import device_trace
+for required in ("audio", "checkpoint", "engine", "profiling"):
+    assert "openpbso_tpu_torch.runtime." + required in names, required
+engine = StreamingEngine(sess, RawCollectorSink(), qnorm_every=2)
+engine.hit(0, np.ones(16))
+engine.start()
+deadline = time.time() + 120
+while engine._blocks_done < 6 and time.time() < deadline:
+    time.sleep(0.01)
+engine.stop()
+assert engine.error is None and engine._blocks_done >= 6
+with tempfile.TemporaryDirectory() as tmp:
+    save_session(os.path.join(tmp, "s.npz"), sess)
+    load_session(os.path.join(tmp, "s.npz"), sess)
+    with device_trace(tmp):
+        sess.warmup()
 print(len(names), "jax" in sys.modules, reference_modules())
 """
 
@@ -62,7 +82,7 @@ def test_port_imports_and_renders_without_jax():
         cwd=ROOT, timeout=300)
     assert proc.returncode == 0, proc.stderr
     n_modules, jax_loaded, reference = proc.stdout.split()
-    assert int(n_modules) >= 20
+    assert int(n_modules) >= 24
     assert jax_loaded == "False"
     assert reference == "none"
 

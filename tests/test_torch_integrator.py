@@ -133,11 +133,15 @@ def test_blocked_complex_and_listener_rows(rows, dberr):
 
 
 def test_qnorm_is_not_ported():
+    """No backend refuses qnorm any more: each returns the [O, M] per-mode
+    energies (held against the JAX package in test_torch_qnorm.py)."""
     _, tb, x = _case()
     args = _args(tb, x, torch.from_numpy)
+    assert not hasattr(ti, "_QNORM_NOT_PORTED")
     for fn in (ti.step_block_scan, ti.step_block_blocked):
-        with pytest.raises(NotImplementedError, match="qnorm"):
-            fn(*args, True)
+        qnorm = fn(*args, True)[3]
+        assert qnorm.shape == x["z_re"].shape and (qnorm >= 0).all()
+        assert float(qnorm.max()) > 0
 
 
 def test_blocked_rejects_tables_of_another_block_size():

@@ -191,7 +191,7 @@ def test_hit_validation(assets):
 
 
 @pytest.mark.parametrize("call", [
-    lambda s: s.qnorm_probe(),
+    lambda s: s._moving_path(np.zeros((4, 2, O, 3))),
     lambda s: s.set_complex_transfer(np.ones((O, 128), complex)),
 ])
 def test_unported_methods_name_their_roadmap_item(assets, call):
@@ -202,14 +202,19 @@ def test_unported_methods_name_their_roadmap_item(assets, call):
 
 
 @pytest.mark.parametrize("kwargs,item", [
-    (dict(config=TConfig(block_size=S, smooth_transfer=True)), "xfade"),
-    (dict(config=TConfig(block_size=S, compute_qnorm=True)), "qnorm"),
-    (dict(num_listeners=2), "Scene"),
+    (dict(num_listeners=2), "Scene: multi-listener rows"),
+    (dict(num_listeners=4, config=TConfig(block_size=S,
+                                          smooth_transfer=True)), "Scene"),
+    (dict(num_listeners=0), "Scene"),
 ])
 def test_unported_session_arguments_raise(assets, kwargs, item):
     _, _, tbank, _ = assets
     with pytest.raises(NotImplementedError, match=item):
         TSession(tbank, **kwargs)
+    # the session's own options of this slice build
+    for cfg in (TConfig(block_size=S, smooth_transfer=True),
+                TConfig(block_size=S, compute_qnorm=True)):
+        assert TSession(tbank, config=cfg).config is cfg
 
 
 @pytest.mark.parametrize("rows", ["listeners", "complex"])
