@@ -52,7 +52,32 @@ Phases, in order; any failure raises and the script exits non-zero:
    ~0.7 s, end ~1.5 s), rendered per block (fused + ar_block) and by
    render_multi (ar_noise, chunk_scan, toeplitz_conv): the two agree to
    <= -60 dB, every kernel of each path launched, and each of ar_noise and
-   ar_block held against its twin on the inputs of the first drag dispatch.
+   ar_block held against its twin on the inputs of the first drag dispatch;
+7. the live stream, on phase 4's bank, maps and listeners: (a) one xfade
+   block (a listener move ramped across the block; the fused backend takes
+   the blocked form for it) against the blend of two constant-row renders
+   through the fused kernel (<= -90 dB), and a ramp from a row to itself
+   against the plain step; (b) a block with qnorm on the fused backend:
+   sound and state bitwise the plain step's, qnorm against the scan
+   backend's (<= -100 dB), qnorm_probe leaving state and clock untouched,
+   with ms and peak memory; (c) render_moving over a 64-block listener
+   path, held rows against the loop "set_listener, step" and ramped rows
+   against a smooth_transfer session stepped per block (<= -90 dB), the
+   fused launches counted; (d) StreamingEngine, unpaced into a collector,
+   over a session without lam64 (fused per block) and with it (one-block
+   and four-block spans), ~200 blocks each with qnorm every 8 blocks,
+   smooth listener moves and drags arriving live: the first 20 blocks
+   against an offline render of the same hits (<= -90 dB); the kernels'
+   launches, read from start() to stop(), against a log of the session's
+   dispatches, and the stream's share of them (all but start()'s warmup)
+   against what the engine's recorded events and the blocks of each
+   dispatch imply without the session (reckon_launches); the profiler's
+   per-block statistics, warmup seconds and first block; (e) the fused
+   engine paced at the audio rate for ~3 s with hits arriving live: no
+   missed or late block, p99 under the block's deadline, and the device's
+   idle share; (f) a snapshot of the running session taken through
+   engine.control, restored into a fresh session: both render the next 16
+   blocks bitwise equal, drags and a retuned AR table included.
 
 Every timed kernel also gets its device time: the torch.profiler duration
 of one launch, median over 30 calls (CUDA events time the host's enqueue
@@ -67,9 +92,11 @@ import argparse
 import contextlib
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -83,6 +110,14 @@ SPAN_DISPATCH = 16           # render_multi's blocks per dispatch
 SUS_SPAN_BLOCKS = 512        # bench.py --sustained: one span of 512 blocks
 DRAGGED = 32                 # objects dragged in phase 6c
 DRAG_EVENTS = (16, 48, 64, 128)   # blocks of start, update, retune, end
+MOVING_BLOCKS = 64           # phase 7c's listener path
+ENGINE_BLOCKS = 200          # blocks of each unpaced engine stream (7d)
+ENGINE_HITS = 16             # enqueued before start(): all apply at block 0
+ENGINE_COMPARED = 20         # first blocks held against the offline render
+ENGINE_DRAGGED = 4           # objects dragged live in 7d
+QNORM_EVERY = 8
+PACED_SECONDS = 3.0          # phase 7e
+CHECKPOINT_BLOCKS = 16       # phase 7f
 TOEPLITZ_DB = -110.0         # the 3xTF32 conv against its FP32 twin
 FUSED_DB = -110.0            # the 3xTF32 fused step against its FP32 twin
 TOEPLITZ_SHAPES = (   # the span's short chunks: label, (O, L, K, X, C)
@@ -362,11 +397,12 @@ def new_session(bank, ffat, listeners, hits, backend, lam64=None):
     return sess
 
 
-def phase_session(bank, rng):
-    import torch
+def session_scene(bank, rng) -> dict:
+    """Phase 4's scene, which the later phases render again: the bank, its
+    FFAT maps, per-object listeners, the hit script and the sample at which
+    its last slot expires."""
     from openpbso_tpu_torch.utils.synth import synth_fatcube
     from openpbso_tpu_torch.config import SAMPLE_RATE
-    from openpbso_tpu_torch.ops import fused_integrator as fi
     from openpbso_tpu_torch.ops.ffat import build_ffat
     from openpbso_tpu_torch.ops.forces import (FORCE_GAUSSIAN, FORCE_HERTZ,
                                                FORCE_POINT, slot_duration)
@@ -389,6 +425,15 @@ def phase_session(bank, rng):
                  else max(1, int(h["width_us"] / 1e6 * SAMPLE_RATE)))
         last_expiry = max(last_expiry, (h["when"] or 0)
                           + slot_duration(code[h["kind"]], width, S))
+    return dict(bank=bank, ffat=ffat, listeners=listeners, hits=hits,
+                last_expiry=last_expiry)
+
+
+def phase_session(scene) -> dict:
+    """Phase 4; returns the scene with the render and its launches."""
+    import torch
+    bank, ffat, listeners, hits, last_expiry = (scene[k] for k in (
+        "bank", "ffat", "listeners", "hits", "last_expiry"))
     busy = sum(1 for b in range(RENDER_BLOCKS) if b * S < last_expiry)
     check(0 < busy < RENDER_BLOCKS, f"hit script leaves {busy} busy blocks")
 
@@ -440,8 +485,7 @@ def phase_session(bank, rng):
         "all_ms_mean": statistics.fmean(full_ms + decay_ms),
     }
     print("session:", json.dumps(summary), flush=True)
-    return dict(launches=launches, ffat=ffat, listeners=listeners,
-                hits=hits, mix=mix, last_expiry=last_expiry)
+    return dict(scene, launches=launches, mix=mix)
 
 
 def span_kernel_case(name, bank, lam64, n_blocks, seed):
@@ -934,6 +978,667 @@ def phase_sustained_session(bank, lam64, per_block) -> dict:
     return {"block": block_counts, "span": span_counts}
 
 
+def cuda_ms(fn) -> float:
+    """CUDA-event time (ms) of one call of ``fn`` on a drained device."""
+    import torch
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    fn()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b)
+
+
+def live_session(scene, lam64=None, hits=(), smooth=True):
+    """A session over phase 4's bank, maps and listeners as the live phases
+    build it: the backend the bank's layout picks, smooth listener moves
+    on."""
+    from openpbso_tpu_torch.runtime.session import ModalSession
+    from openpbso_tpu_torch.runtime.solver import SolverConfig
+    sess = ModalSession(scene["bank"], scene["ffat"], SolverConfig(
+        block_size=S, backend="auto", smooth_transfer=smooth), lam64=lam64)
+    sess.set_listener(scene["listeners"])
+    for h in hits:
+        sess.hit(h["obj"], h["space"], kind=h["kind"],
+                 width_us=h["width_us"], amp=h["amp"], when=h.get("when"))
+    return sess
+
+
+def phase_xfade(scene, rng) -> dict:
+    """Phase 7a: one transfer-ramp block on the fused backend."""
+    import dataclasses
+
+    import torch
+    from openpbso_tpu_torch.runtime.solver import (default_gains,
+                                                   step_block,
+                                                   step_block_xfade)
+    bank, dev = scene["bank"], scene["bank"].device
+    rows = scene["rows"]
+    state = block_state(scene, rng, rows[1])
+    gains = default_gains(O, device=dev)
+    kw = dict(block_size=S, backend="auto", with_sustained=False)
+
+    reset_launches()
+    new, sound, _, _ = step_block_xfade(state, bank, gains, rows[0], **kw)
+    noop = step_block_xfade(state, bank, gains, rows[1], **kw)[1]
+    check(read_launches()["fused_block"] == 0,
+          "an xfade block launched the fused kernel")
+    const = [step_block(dataclasses.replace(state, transfer=r), bank, gains,
+                        **kw) for r in rows]
+    check(read_launches()["fused_block"] == 2,
+          "the constant-row renders did not go through the fused kernel")
+    ramp = torch.arange(1, S + 1, device=dev, dtype=torch.float32) / S
+    blend = const[0][1] + ramp * (const[1][1] - const[0][1])
+    torch.cuda.synchronize()
+    check(bool(torch.isfinite(sound).all()) and float(sound.abs().max()) > 0,
+          "xfade sound not finite or silent")
+    out = {
+        "db_vs_fused_blend": db_error(sound.cpu().numpy(),
+                                      blend.cpu().numpy()),
+        "db_state_vs_fused": db_error(new.z_im.cpu().numpy(),
+                                      const[1][0].z_im.cpu().numpy()),
+        "db_noop_vs_plain_step": db_error(noop.cpu().numpy(),
+                                          const[1][1].cpu().numpy()),
+        "ms": statistics.median(cuda_ms(lambda: step_block_xfade(
+            state, bank, gains, rows[0], **kw)) for _ in range(7)),
+        "fused_step_ms": statistics.median(cuda_ms(lambda: step_block(
+            state, bank, gains, **kw)) for _ in range(7)),
+    }
+    for key in ("db_vs_fused_blend", "db_state_vs_fused",
+                "db_noop_vs_plain_step"):
+        check(out[key] <= -90.0, f"xfade {key} {out[key]} dB")
+    print("xfade:", json.dumps(out), flush=True)
+    return out
+
+
+def block_state(scene, rng, transfer):
+    """A solver state at full width with a ringing bank and a live gaussian
+    slot on every object, under the given transfer rows."""
+    import dataclasses
+
+    from openpbso_tpu_torch.ops.forces import FORCE_GAUSSIAN
+    from openpbso_tpu_torch.runtime.state import make_solver_state
+    bank = scene["bank"]
+    z_re, z_im, space, _, _ = block_inputs(bank, S, rng)
+    state = make_solver_state(O, bank.num_modes, num_slots=4,
+                              device=bank.device)
+    state.slots.ftype[:, 0] = FORCE_GAUSSIAN
+    state.slots.width[:, 0] = 40.0
+    state.slots.space[:, 0] = space
+    return dataclasses.replace(state, z_re=z_re, z_im=z_im,
+                               transfer=transfer)
+
+
+def phase_qnorm(scene, rng) -> dict:
+    """Phase 7b: a block with the per-mode energy telemetry on the fused
+    backend, and the session's probe."""
+    import torch
+    from openpbso_tpu_torch.runtime.solver import default_gains, step_block
+    from openpbso_tpu_torch.runtime.state import clone_state, state_leaves
+    bank, dev = scene["bank"], scene["bank"].device
+    state = block_state(scene, rng, scene["rows"][0])
+    gains = default_gains(O, device=dev)
+    kw = dict(block_size=S, with_sustained=False)
+
+    plain = step_block(state, bank, gains, backend="auto", **kw)
+    torch.cuda.synchronize()
+    resident = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    withq = step_block(state, bank, gains, backend="auto",
+                       compute_qnorm=True, **kw)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - resident
+    check(read_launches()["fused_block"] == 1,
+          "the qnorm block did not step through the fused kernel")
+    for name, a, b in (("z_re", withq[0].z_re, plain[0].z_re),
+                       ("z_im", withq[0].z_im, plain[0].z_im),
+                       ("sound", withq[1], plain[1]),
+                       ("mix", withq[2], plain[2])):
+        check(torch.equal(a, b), f"qnorm changed the step's {name}")
+    qnorm = withq[3]
+    check(plain[3] is None and tuple(qnorm.shape) == (O, bank.num_modes)
+          and bool(torch.isfinite(qnorm).all()) and float(qnorm.max()) > 0,
+          "qnorm shape or values")
+    scan = step_block(state, bank, gains, backend="scan",
+                      compute_qnorm=True, **kw)[3]
+    out = {"db_vs_scan": db_error(qnorm.cpu().numpy(), scan.cpu().numpy()),
+           "peak_bytes_above_resident": peak,
+           "resident_bytes": resident,
+           "ms": statistics.median(cuda_ms(lambda: step_block(
+               state, bank, gains, backend="auto", compute_qnorm=True,
+               **kw)) for _ in range(5))}
+    check(out["db_vs_scan"] <= -100.0,
+          f"qnorm {out['db_vs_scan']} dB vs the scan backend's")
+    del withq, plain, scan
+
+    sess = live_session(scene, hits=scene["engine_hits"])
+    sess.render(3)
+    before = clone_state(sess.state)
+    clock = sess.sample_clock
+    torch.cuda.synchronize()
+    resident = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    probe = sess.qnorm_probe()
+    torch.cuda.synchronize()
+    out["probe_peak_bytes_above_resident"] = (
+        torch.cuda.max_memory_allocated() - resident)
+    check(sess.sample_clock == clock, "qnorm_probe moved the clock")
+    for a, b in zip(state_leaves(before), state_leaves(sess.state)):
+        check(torch.equal(a, b) if isinstance(a, torch.Tensor) else a == b,
+              "qnorm_probe changed the state")
+    check(tuple(probe.shape) == (O, bank.num_modes)
+          and bool(torch.isfinite(probe).all()) and float(probe.max()) > 0,
+          "qnorm_probe shape or values")
+    out["probe_ms"] = statistics.median(
+        cuda_ms(sess.qnorm_probe) for _ in range(5))
+    print("qnorm:", json.dumps(out), flush=True)
+    return out
+
+
+def phase_moving(scene) -> dict:
+    """Phase 7c: render_moving along a listener path, rows held and
+    ramped, against the per-move flow."""
+    t_blocks = MOVING_BLOCKS
+    ang = 0.2 * np.arange(t_blocks)
+    delta = 0.5 * np.stack([np.cos(ang), np.sin(ang), 0.2 * np.sin(3 * ang)],
+                           axis=1)
+    path = scene["listeners"][None] + delta[:, None, :]       # [T, O, 3]
+    hits = scene["hits"]
+    out = {"blocks": t_blocks}
+    for smooth in (False, True):
+        label = "ramped" if smooth else "held"
+        sess = live_session(scene, hits=hits, smooth=smooth)
+        reset_launches()
+        t = time.perf_counter()
+        got = sess.render_moving(path, smooth=smooth)
+        seconds = time.perf_counter() - t
+        counts = read_launches()
+        want = dict.fromkeys(KERNELS, 0)
+        want["fused_block"] = 0 if smooth else t_blocks
+        check(counts == want, f"render_moving ({label}) launches {counts}")
+        ref_sess = live_session(scene, hits=hits, smooth=smooth)
+        ref = []
+        for p in path:
+            ref_sess.set_listener(p)
+            ref.append(ref_sess.step()[1].cpu().numpy())
+        ref = np.concatenate(ref)
+        check(got.shape == (t_blocks * S, 2)
+              and bool(np.isfinite(got).all())
+              and float(np.abs(got).max()) > 0,
+              f"render_moving ({label}) not finite or silent")
+        db = db_error(got, ref)
+        check(db <= -90.0, f"render_moving ({label}) {db} dB vs per move")
+        check(sess.sample_clock == ref_sess.sample_clock == t_blocks * S,
+              "render_moving clock")
+        out[label] = {"db_vs_per_move": db, "launches": counts,
+                      "ms_per_block": 1e3 * seconds / t_blocks}
+    print("moving listener:", json.dumps(out), flush=True)
+    return out
+
+
+def dispatch_log(sess) -> list:
+    """Wrap the session's dispatch methods so that each call appends
+    (kind, blocks, with_sustained) to the returned list, resolved from the
+    host mirrors exactly as the method resolves them. Warmup's calls are
+    logged like the stream's."""
+    log = []
+    full, xfade = sess._step_full, sess._step_xfade
+    decay, span = sess._step_decay, sess._step_span
+
+    def sustained(flag):
+        return sess._with_sustained() if flag is None else flag
+
+    def _full(with_sustained=None, num_slots="auto"):
+        log.append(("full", 1, sustained(with_sustained)))
+        return full(with_sustained, num_slots)
+
+    def _xfade(prev, with_sustained=None, num_slots="auto"):
+        log.append(("xfade", 1, sustained(with_sustained)))
+        return xfade(prev, with_sustained, num_slots)
+
+    def _decay():
+        log.append(("decay", 1, False))
+        return decay()
+
+    def _span(n, num_slots="auto", idle=None, with_sustained=None,
+              ar_per_object=False):
+        if idle is None:
+            idle = sess._idle() and sess.config.decay_fast_path
+        log.append(("idle_span", n, False) if idle
+                   else ("span", n, sustained(with_sustained)))
+        return span(n, num_slots, idle, with_sustained, ar_per_object)
+
+    sess._step_full, sess._step_xfade = _full, _xfade
+    sess._step_decay, sess._step_span = _decay, _span
+    return log
+
+
+def expected_launches(log) -> dict:
+    """The kernels' launches that a dispatch log of a heterogeneous CUDA
+    session implies: a full block steps through fused_block, plus ar_block
+    with the sustained channel; an xfade block goes through the blocked
+    form; a span is one chunk_scan, one toeplitz_conv unless idle, and with
+    the channel one ar_noise and the noise's toeplitz_conv."""
+    want = dict.fromkeys(KERNELS, 0)
+    for kind, _, with_sustained in log:
+        if kind == "full":
+            want["fused_block"] += 1
+        if kind in ("full", "xfade"):
+            want["ar_block"] += bool(with_sustained)
+        if kind in ("span", "idle_span"):
+            want["chunk_scan"] += 1
+        if kind == "span":
+            want["toeplitz_conv"] += 1 + bool(with_sustained)
+            want["ar_noise"] += bool(with_sustained)
+    return want
+
+
+def reckon_launches(recorded, sizes, spans, moved) -> tuple:
+    """The launches an engine stream over a heterogeneous CUDA session must
+    make, reckoned without the session: from the events the engine recorded
+    as it applied them (each stamped with its block's first sample) and the
+    blocks each dispatch held. A listener move takes the next block through
+    the transfer ramp (the blocked form: no fused_block); a block with every
+    hit's slot expired and no drag is idle (the decay step, or a span that
+    is chunk_scan alone); a drag adds ar_block per block, or ar_noise and
+    the noise's toeplitz_conv per span. With ``spans`` (a session holding
+    lam64) every dispatch is one span unless a move is pending, and then
+    its blocks go one by one; ``moved`` says whether one is pending when
+    the stream starts. The stream retunes only sigma and mu, so the span
+    stays eligible throughout. Returns (launches, dispatch kinds)."""
+    from openpbso_tpu_torch.config import SAMPLE_RATE
+    from openpbso_tpu_torch.ops.forces import (FORCE_GAUSSIAN, FORCE_HERTZ,
+                                               FORCE_POINT, slot_duration)
+    code = {"point": FORCE_POINT, "gaussian": FORCE_GAUSSIAN,
+            "hertz": FORCE_HERTZ}
+    want = dict.fromkeys(KERNELS, 0)
+    kinds = {}
+    by_clock = {}
+    for clock, ev in recorded:
+        by_clock.setdefault(clock, []).append(ev)
+    check(all(c % S == 0 for c in by_clock), "an event applied inside a block")
+    clock, busy_until, dragged = 0, 0, set()
+
+    def one_block(at):
+        nonlocal moved
+        drag = bool(dragged)
+        if moved:
+            moved, kind = False, "xfade"
+        elif not drag and busy_until <= at:
+            return "decay"
+        else:
+            kind = "full"
+            want["fused_block"] += 1
+        want["ar_block"] += drag
+        return kind + ("+drag" if drag else "")
+
+    for n in sizes:
+        for ev in by_clock.pop(clock, ()):
+            name = type(ev).__name__
+            if name == "HitEvent":
+                width = (1.0 if ev.kind == "point" else
+                         max(1, int(ev.width_us / 1e6 * SAMPLE_RATE)))
+                busy_until = max(busy_until, clock + slot_duration(
+                    code[ev.kind], width, S))
+            elif name == "SustainedEvent" and ev.action == "start":
+                dragged.add(ev.obj)
+            elif name == "SustainedEvent" and ev.action == "end":
+                dragged.discard(ev.obj)
+            elif name == "TransferEvent":
+                moved = True
+            elif name == "ArParamEvent":
+                check(tuple(ev.a) == (0.783, 0.116),
+                      "the stream retuned an AR table's coefficients")
+        if spans and not moved:
+            drag = bool(dragged)
+            idle = not drag and busy_until <= clock
+            want["chunk_scan"] += 1
+            if not idle:
+                want["toeplitz_conv"] += 1 + drag
+                want["ar_noise"] += drag
+            done = [("idle_span" if idle else "span")
+                    + ("+drag" if drag else "")]
+        else:
+            done = [one_block(clock + i * S) for i in range(n)]
+        for kind in done:
+            kinds[kind] = kinds.get(kind, 0) + 1
+        clock += n * S
+    check(not by_clock, f"events applied at no dispatch: {sorted(by_clock)}")
+    return want, kinds
+
+
+def tap_dispatches(engine, events=False):
+    """Record what each synthesis dispatch produced (the consumer pads the
+    sink with a stale block whenever the host stalls; the tap does not) and
+    how many blocks it held, with ``events`` also a CUDA-event pair around
+    each dispatch."""
+    import torch
+    produced, pairs, sizes = [], [], []
+    inner = engine._synth_once
+
+    def tapped():
+        if events:
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+        blocks = inner()
+        if events:
+            b.record()
+            pairs.append((a, b))
+        produced.extend(blocks)
+        sizes.append(len(blocks))
+        return blocks
+
+    engine._synth_once = tapped
+    return produced, pairs, sizes
+
+
+def drive(engine, n_blocks, schedule) -> object:
+    """Feed a running engine the events of ``schedule`` ([(block, fn)],
+    ascending) as its block count passes each threshold, until it has
+    produced n_blocks; returns the last qnorm it reported."""
+    pending = list(schedule)
+    qnorm = None
+    deadline = time.perf_counter() + 300.0
+    while engine._blocks_done < n_blocks:
+        check(engine.healthy, f"engine died: {engine.error!r}")
+        check(time.perf_counter() < deadline,
+              f"engine produced {engine._blocks_done} blocks in 300 s")
+        while pending and pending[0][0] <= engine._blocks_done:
+            pending.pop(0)[1]()
+        q = engine.latest_qnorm()
+        qnorm = q if q is not None else qnorm
+        time.sleep(0.002)
+    return qnorm
+
+
+def stats_dict(engine) -> dict:
+    import dataclasses
+    st = engine.profiler.stats()
+    out = dataclasses.asdict(st)
+    out["first_block_ms"] = 1e3 * float(engine.profiler._times[0])
+    return out
+
+
+def engine_stream(label, scene, lam64, lookahead, rng) -> dict:
+    """One unpaced engine stream of phase 7d; returns its produced audio,
+    launch counts and statistics."""
+    import torch
+    from openpbso_tpu_torch.runtime.audio import RawCollectorSink
+    from openpbso_tpu_torch.runtime.engine import StreamingEngine
+    sess = live_session(scene, lam64=lam64)
+    log = dispatch_log(sess)
+    warmed = {}
+    warmup = sess.warmup
+
+    def counted_warmup(**kw):
+        # start() warms up before it spawns the threads: what is counted
+        # and logged when it returns is the warmup's, the rest the stream's
+        warmup(**kw)
+        warmed.update(launches=read_launches(), dispatches=len(log))
+
+    sess.warmup = counted_warmup
+    sink = RawCollectorSink()
+    engine = StreamingEngine(sess, sink, qnorm_every=QNORM_EVERY,
+                             lookahead=lookahead, record=True)
+    produced, _, sizes = tap_dispatches(engine)
+    for h in scene["engine_hits"]:
+        check(engine.hit(h["obj"], h["space"], kind=h["kind"],
+                         width_us=h["width_us"], amp=h["amp"]),
+              "the engine dropped a hit")
+    dragged = list(range(2, O, O // ENGINE_DRAGGED))[:ENGINE_DRAGGED]
+    spaces = rng.standard_normal((2, ENGINE_DRAGGED, M))
+    first = ENGINE_COMPARED + 4
+    schedule = [(first, lambda: [engine.sustained_start(o, v)
+                                 for o, v in zip(dragged, spaces[0])])]
+    schedule += [(b, lambda b=b: engine.set_listener(
+        scene["listeners"] + 0.3 * np.sin(0.1 * b)))
+        for b in range(first + 6, ENGINE_BLOCKS, 20)]
+    schedule += [
+        (80, lambda: engine.set_ar_params(dragged[0], sigma=0.003, mu=0.1)),
+        (100, lambda: [engine.sustained_update(o, v)
+                       for o, v in zip(dragged, spaces[1])]),
+        (150, lambda: [engine.sustained_end(o) for o in dragged])]
+    schedule.sort(key=lambda e: e[0])
+
+    # the counted window is the engine's own run, start() to stop()
+    reset_launches()
+    t = time.perf_counter()
+    engine.start()
+    start_s = time.perf_counter() - t
+    qnorm = drive(engine, ENGINE_BLOCKS, schedule)
+    health = dict(health=engine.health.health, missed=engine.health.missed)
+    engine.stop()
+    counts = read_launches()
+    run_log = list(log)
+    sess.warmup = warmup
+    t = time.perf_counter()
+    sess.warmup(qnorm=True, sustained=True,
+                span_blocks=(lookahead,) if lam64 is not None else ())
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t
+
+    check(engine.error is None, f"{label}: engine error {engine.error!r}")
+    want = expected_launches(run_log)
+    check(counts == want, f"{label}: launches {counts} != {want} reckoned "
+          "from the dispatch log")
+    # the stream's own launches against the event record: nothing of the
+    # session's routing enters this reckoning
+    streamed = {k: counts[k] - warmed["launches"][k] for k in KERNELS}
+    # live_session set the listener of a smooth_transfer session: block 0
+    # ramps from the unit transfer, one xfade beside the recorded moves
+    reckoned, kinds = reckon_launches(engine.recorded, sizes,
+                                      lam64 is not None, moved=True)
+    check(streamed == reckoned, f"{label}: the stream launched {streamed}, "
+          f"its events and block counts give {reckoned} ({kinds})")
+    check(sum(sizes) == len(produced) >= ENGINE_BLOCKS
+          and sum(n for _, n, _ in run_log[warmed["dispatches"]:])
+          == len(produced),
+          f"{label}: {len(produced)} blocks produced, dispatches {sizes}")
+    moves = sum(1 for _, ev in engine.recorded
+                if type(ev).__name__ == "TransferEvent")
+    xfades = kinds.get("xfade", 0) + kinds.get("xfade+drag", 0)
+    check(moves >= 3 and xfades == moves + 1
+          and sum(1 for kind, _, _ in run_log[warmed["dispatches"]:]
+                  if kind == "xfade") == moves + 1,
+          f"{label}: {moves} listener moves, dispatches {kinds}")
+    if lam64 is not None and lookahead == 1:
+        spans = sum(v for k, v in kinds.items() if "span" in k)
+        check(spans == len(produced) - moves - 1,
+              f"{label}: {spans} spans for {len(produced)} blocks and "
+              f"{moves} + 1 ramped")
+    check(qnorm is not None and qnorm.shape == (O, sess.bank.num_modes)
+          and bool(np.isfinite(qnorm).all()),
+          f"{label}: latest_qnorm gave "
+          f"{None if qnorm is None else qnorm.shape}")
+    audio = np.concatenate(produced)
+    check(bool(np.isfinite(audio).all()) and float(np.abs(audio).max()) > 0,
+          f"{label}: stream not finite or silent")
+    out = {"lookahead": lookahead, "lam64": lam64 is not None,
+           "blocks": len(produced), "dispatches": kinds,
+           "launches": counts, "launches_of_start_warmup": warmed["launches"],
+           "launches_of_stream": streamed, "listener_moves": moves,
+           "health_before_stop": health,
+           "collected_blocks": len(sink.blocks),
+           "start_s_first": start_s, "warmup_s_again": warm_s,
+           "stats": stats_dict(engine)}
+    print(f"engine {label}:", json.dumps(out), flush=True)
+    return dict(out, audio=audio[:ENGINE_COMPARED * S])
+
+
+def phase_engine(scene, lam64, rng) -> dict:
+    """Phase 7d: the engine, unpaced, over the fused per-block path and
+    over one-block and four-block spans."""
+    fused = engine_stream("(i) fused per block", scene, None, 1, rng)
+    span1 = engine_stream("(ii) one-block spans", scene, lam64, 1, rng)
+    span4 = engine_stream("(ii) four-block spans", scene, lam64, 4, rng)
+    for name, k in (("fused_block", fused), ("ar_block", fused),
+                    ("chunk_scan", span1), ("toeplitz_conv", span1),
+                    ("ar_noise", span1), ("chunk_scan", span4),
+                    ("toeplitz_conv", span4), ("ar_noise", span4)):
+        check(k["launches"][name] > 0, f"an engine stream never launched "
+              f"{name}: {k['launches']}")
+    offline = live_session(scene, hits=scene["engine_hits"]).render(
+        ENGINE_COMPARED)
+    out = {"db_fused_engine_vs_offline_render":
+           db_error(fused["audio"], offline),
+           "db_span1_engine_vs_fused_engine":
+           db_error(span1["audio"], fused["audio"]),
+           "db_span4_engine_vs_fused_engine":
+           db_error(span4["audio"], fused["audio"])}
+    check(float(np.abs(offline).max()) > 0, "offline render is silent")
+    for key, db in out.items():
+        check(db <= -90.0, f"{key} {db} dB")
+    print("engine, first blocks:", json.dumps(out), flush=True)
+    return {k: sum(e["launches"][k] for e in (fused, span1, span4))
+            for k in KERNELS}
+
+
+def phase_paced(scene, rng) -> dict:
+    """Phase 7e: the fused engine against a consumer paced at the audio
+    rate, hits arriving live; then the device's idle share."""
+    import torch
+    from openpbso_tpu_torch.config import SAMPLE_RATE
+    from openpbso_tpu_torch.runtime.audio import RealTimePacerSink
+    from openpbso_tpu_torch.runtime.engine import StreamingEngine
+    from openpbso_tpu_torch.runtime.profiling import device_trace
+
+    def stream(seconds, events):
+        sess = live_session(scene)
+        sink = RealTimePacerSink()
+        engine = StreamingEngine(sess, sink, qnorm_every=QNORM_EVERY)
+        _, pairs, _ = tap_dispatches(engine, events=events)
+        engine.start()
+        t0 = time.perf_counter()
+        n = 0
+        while time.perf_counter() - t0 < seconds:
+            check(engine.healthy, f"paced engine died: {engine.error!r}")
+            h = scene["hits"][n % len(scene["hits"])]
+            engine.hit(h["obj"], h["space"], kind=h["kind"],
+                       width_us=h["width_us"], amp=h["amp"])
+            n += 1
+            time.sleep(0.1)
+        wall = time.perf_counter() - t0
+        # read before stop(): the consumer books the block it was waiting
+        # for when the stream ends as one more miss
+        health = dict(health=engine.health.health,
+                      missed=engine.health.missed,
+                      late_blocks=sink.late_blocks,
+                      paced_blocks=sink.total_blocks)
+        engine.stop()
+        torch.cuda.synchronize()
+        check(engine.error is None, f"paced engine error {engine.error!r}")
+        return engine, health, pairs, wall, n
+
+    engine, health, pairs, wall, n_hits = stream(PACED_SECONDS, True)
+    busy_ms = sum(a.elapsed_time(b) for a, b in pairs)
+    st = stats_dict(engine)
+    deadline_ms = 1e3 * S / SAMPLE_RATE
+    out = dict(health, seconds=wall, blocks=engine._blocks_done, hits=n_hits,
+               stats=st, deadline_ms=deadline_ms,
+               dispatch_event_ms_sum=busy_ms,
+               idle_share_by_events=1.0 - busy_ms / (1e3 * wall))
+    check(health["missed"] == 0, f"paced: {health['missed']} missed")
+    check(health["late_blocks"] == 0,
+          f"paced: {health['late_blocks']} late blocks")
+    check(st["p99_ms"] < deadline_ms,
+          f"paced: p99 {st['p99_ms']} ms >= {deadline_ms} ms")
+    check(engine._blocks_done >= int(0.8 * PACED_SECONDS * SAMPLE_RATE / S),
+          f"paced: only {engine._blocks_done} blocks")
+
+    # the same stream for 1 s under the profiler: the kernels' own time
+    from torch.autograd import DeviceType
+    with tempfile.TemporaryDirectory() as tmp:
+        with device_trace(tmp) as prof:
+            _, _, _, wall_p, _ = stream(1.0, False)
+        check(os.path.getsize(os.path.join(tmp, "trace.json")) > 0,
+              "device_trace wrote no trace")
+    kernel_us = sum(e.time_range.elapsed_us() for e in prof.events()
+                    if e.device_type == DeviceType.CUDA)
+    out["profiled_seconds"] = wall_p
+    out["profiled_kernel_ms_sum"] = kernel_us / 1e3
+    out["idle_share_by_profiler"] = (
+        1.0 - kernel_us / 1e6 / wall_p if kernel_us > 0 else None)
+    print("engine, paced:", json.dumps(out), flush=True)
+    return out
+
+
+def phase_checkpoint(scene, rng) -> dict:
+    """Phase 7f: a snapshot of the running session through engine.control,
+    restored into a fresh session."""
+    from openpbso_tpu_torch.runtime.audio import RawCollectorSink
+    from openpbso_tpu_torch.runtime.checkpoint import (load_session,
+                                                       save_session)
+    from openpbso_tpu_torch.runtime.engine import StreamingEngine
+    sess = live_session(scene)
+    engine = StreamingEngine(sess, RawCollectorSink())
+    for h in scene["engine_hits"]:
+        engine.hit(h["obj"], h["space"], kind=h["kind"],
+                   width_us=h["width_us"], amp=h["amp"])
+    dragged = list(range(2, O, O // ENGINE_DRAGGED))[:ENGINE_DRAGGED]
+    box = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "live.npz")
+
+        def snapshot(s):
+            save_session(path, s)
+            box["clock"] = s.sample_clock
+            box["drags"] = int(s._sus_active.sum())
+            box["next"] = s.render(CHECKPOINT_BLOCKS)
+
+        reset_launches()
+        engine.start()
+        for o in dragged:
+            engine.sustained_start(o, rng.standard_normal(M))
+        engine.set_ar_params(dragged[0], a=(0.6, 0.2), sigma=0.003, mu=0.1)
+        drive(engine, 12, [])
+        check(engine.control(snapshot), "engine.control timed out")
+        engine.stop()
+        counts = read_launches()
+        check(engine.error is None, f"engine error {engine.error!r}")
+        size = os.path.getsize(path)
+        fresh = live_session(scene)
+        load_session(path, fresh)
+    check(box["drags"] == ENGINE_DRAGGED and box["clock"] > 0,
+          f"snapshot state {box['drags']} drags at clock {box['clock']}")
+    check(fresh.sample_clock == box["clock"], "restored clock")
+    check(tuple(fresh._ar_host[dragged[0]]) == (0.6, 0.2),
+          "restored AR mirror")
+    again = fresh.render(CHECKPOINT_BLOCKS)
+    check(float(np.abs(again).max()) > 0, "restored render is silent")
+    check(np.array_equal(again, box["next"]),
+          f"restored render differs: {db_error(again, box['next'])} dB")
+    check(counts["ar_block"] > 0 and counts["fused_block"] > 0,
+          f"checkpoint stream launches {counts}")
+    out = {"snapshot_clock": box["clock"], "drags": box["drags"],
+           "npz_bytes": size, "blocks": CHECKPOINT_BLOCKS, "bitwise": True}
+    print("checkpoint:", json.dumps(out), flush=True)
+    return out
+
+
+def phase_live(scene, lam64, rng) -> dict:
+    """Phase 7; returns the engine streams' launches per kernel."""
+    import torch
+    from openpbso_tpu_torch.ops.ffat import compute_transfer
+    dev = scene["bank"].device
+    scene = dict(scene)
+    scene["rows"] = [compute_transfer(scene["ffat"], torch.as_tensor(
+        p, dtype=torch.float32, device=dev))
+        for p in (scene["listeners"], scene["listeners"][::-1].copy())]
+    scene["engine_hits"] = [dict(h, when=None)
+                            for h in scene["hits"][:ENGINE_HITS]]
+    phase_xfade(scene, rng)
+    phase_qnorm(scene, rng)
+    phase_moving(scene)
+    launches = phase_engine(scene, lam64, rng)
+    phase_paced(scene, rng)
+    phase_checkpoint(scene, rng)
+    return launches
+
+
 def kernel_bounds(hetero_modes_padded, shared_modes_padded, n_chunks,
                   chunk):
     """Each kernel's bound (bench/roofline.py) at the shape its JSON entry
@@ -1002,13 +1707,14 @@ def main() -> int:
           f"a bank built without device= is on {hetero.device}")
     print(f"hetero bank {O}x{hetero.num_modes}: "
           f"{time.perf_counter() - t} s", flush=True)
+
     prod = kernel_case("hetero", hetero, S, CHUNK, rng, timed=True)
     shared = shared_bank(O, M, S, dev)
     kernel_case("shared", shared, S, CHUNK, rng, timed=True)
     kernel_case("ragged", hetero_bank(5, 40, 256, dev), 256, CHUNK, rng)
     kernel_case("chunk>S", hetero_bank(3, 24, 32, dev), 32, CHUNK, rng)
 
-    per_block = phase_session(hetero, rng)
+    per_block = phase_session(session_scene(hetero, rng))
 
     from openpbso_tpu_torch.ops.coeffs import lambda_from_modes
     mat, omega_squared = shared_modes(M)
@@ -1027,9 +1733,13 @@ def main() -> int:
     phase_sustained_span(shared, shared_lam, args.seed)
     drag_launches = phase_sustained_session(hetero, modes[0], per_block)
 
+    live_launches = phase_live(per_block, modes[0], rng)
+
     head = span_cases[SPAN_CASES[0][0]]
     bounds = kernel_bounds(hetero.num_modes, shared.num_modes,
                            head["n_chunks"], head["chunk"])
+    # launches: each kernel's count on its render's path (phases 4, 5b,
+    # 6c) plus the engine streams' (7d), each read around its own run
     kernels = [dict(name="fused_block", launches=per_block["launches"],
                     max_abs_err=prod["max_abs_err"], ms=prod["kernel_ms"],
                     device_ms=prod["device_ms"], plain_ms=prod["plain_ms"],
@@ -1046,6 +1756,7 @@ def main() -> int:
                      plain_ms=ar[k]["plain_ms"], library_ms=None)
                 for k, path in (("ar_noise", "span"), ("ar_block", "block"))]
     for k in kernels:
+        k["launches"] += live_launches[k["name"]]
         k.update(route="cuda", source=KERNELS[k["name"]][0],
                  replaces=KERNELS[k["name"]][1],
                  bound_ms=bounds[k["name"]]["bound_ms"],

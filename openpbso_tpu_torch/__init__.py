@@ -10,12 +10,16 @@ tests/test_torch_io.py holds each copy against its original.
 Ported so far: the per-block modal step (``runtime.session.ModalSession``
 -> ``runtime.solver.step_block`` -> ``ops.integrator`` backends), with the
 fused per-block kernel of heterogeneous banks written in CUDA for sm_90a
-(``csrc/fused_block.cu``, wrapped by ``ops.fused_integrator``); and the
-chunked span (``ModalSession.render_multi`` -> ``runtime.solver.step_span``
--> ``ops.span``), whose chunk-state scan and within-chunk Toeplitz
-convolution are CUDA kernels too (``csrc/chunk_scan.cu``,
-``csrc/toeplitz_conv.cu``, wrapped by ``ops.chunk_scan`` and
-``ops.toeplitz_conv``).
+(``csrc/fused_block.cu``, wrapped by ``ops.fused_integrator``); the chunked
+span (``ModalSession.render_multi`` -> ``runtime.solver.step_span`` ->
+``ops.span``), whose chunk-state scan and within-chunk Toeplitz convolution
+are CUDA kernels too (``csrc/chunk_scan.cu``, ``csrc/toeplitz_conv.cu``);
+the sustained AR(2) contact channel on both (``csrc/ar_block.cu``,
+``csrc/ar_noise.cu``); and the live stream: listener moves ramped across a
+block, per-mode energy telemetry (qnorm), a moving listener rendered
+offline, ``ModalSession.warmup``, and ``runtime.engine.StreamingEngine``
+with its sinks (``runtime.audio``), profiler (``runtime.profiling``) and
+checkpoints (``runtime.checkpoint``).
 
 Importing the package applies the float32 precision pin (``precision``).
 """

@@ -57,7 +57,8 @@ def ffat_from_numpy(src, device=None) -> FFATMaps:
     if getattr(g, "psi_c", None) is not None:
         raise NotImplementedError(
             "the compressed Psi texture is not ported yet (ROADMAP.md "
-            "Queue 1 item 4: Scene)")
+            "Queue 1, \"Scene: multi-listener rows, complex transfers, "
+            "the compressed texture\")")
     geom = DeviceFFAT(**{name: _t(getattr(g, name), device) for name in (
         "psi", "k", "center", "bbox_low", "bbox_top", "low_corners",
         "n_elements", "strides", "mode_mask")})

@@ -26,10 +26,11 @@ Backends:
 
     qnorm_m  = sqrt(sum_s q_s[m]^2)                  (modal_solver.h:270-272)
 
-which in the blocked form is the one term that materialises per-mode,
-per-sample values ([O, M, S] and its FFTs), so it is computed only on
-request. The ``*_xfade`` variants ramp the transfer row linearly across the
-block (a listener move without the level step of a block-constant row).
+which in the blocked form is the one term that needs per-mode, per-sample
+values, so it is computed only on request (_qnorm_blocked walks the block
+in chunks for it). The ``*_xfade`` variants ramp the transfer row linearly
+across the block (a listener move without the level step of a
+block-constant row).
 """
 from __future__ import annotations
 
@@ -146,22 +147,60 @@ def _advance_blocked(bank, z_re, z_im, be_re, be_im, time_profile):
     return z_re_out, z_im_out
 
 
+QNORM_CHUNK = 64   # samples per chunk of _qnorm_blocked's recurrence
+
+
 def _qnorm_blocked(bank, be_re, be_im, time_profile, z_re, z_im):
-    """Per-mode energy over the block: the homogeneous part plus the
-    per-mode causal convolution of the time profile with the mode's impulse
-    kernel Im(lam^d b space). Independent of the transfer, so the plain and
-    the xfade blocked steps share it. Materialises [O, M, S] and its
-    length-2S FFTs (about 3.8 GB of float32 at 256 x 1024 x 512)."""
+    """Per-mode energy over the block, qnorm_m = sqrt(sum_s q_s[m]^2) with
+
+        q_s = Im(lam^{s+1} z_{-1}) + sum_{j<=s} Im(lam^{s-j} b space) time_j.
+
+    Independent of the transfer, so the plain and the xfade blocked steps
+    share it. The JAX package forms q for the whole block by one length-2S
+    FFT convolution per mode (openpbso_tpu/ops/integrator.py:207-219). At
+    256 x 1024 x 512 that is a 0.54 GB kernel, spectra of 1.08 GB and about
+    20 GB of traffic for one [O, M] answer. Here the block is walked in
+    chunks of C samples, as the fused step walks it: from the state z_k at
+    a chunk's start,
+
+        q_{kC+c} = Im(lam^{c+1} z_k) + sum_{j<=c} Im(lam^{c-j} b space) f_j
+        z_{k+1}  = lam^C z_k + b space sum_j lam^{C-1-j} f_j,
+
+    the within-chunk convolution as one [M, C] x [C, C] product per object
+    against the Toeplitz matrix of the chunk's profile. Only the first C+1
+    columns of the tables are read, and nothing larger than [O, M, C] is
+    held. The same values to float32 rounding."""
     s = time_profile.shape[-1]
-    n = 2 * s
-    pr, pi = bank.pow_re, bank.pow_im
-    ker = be_re[..., None] * pi[..., :s] + be_im[..., None] * pr[..., :s]
-    kf = torch.fft.rfft(ker, n=n, dim=-1)
-    ff = torch.fft.rfft(time_profile, n=n, dim=-1)[:, None, :]
-    conv = torch.fft.irfft(kf * ff, n=n, dim=-1)[..., :s].to(z_re.dtype)
-    q = (pr[..., 1:] * z_im[..., None] + pi[..., 1:] * z_re[..., None]
-         + conv)
-    return torch.sqrt((q * q).sum(dim=-1)) * bank.mask
+    c = next(d for d in range(min(QNORM_CHUNK, s), 0, -1) if s % d == 0)
+    o, n_chunks = time_profile.shape[0], s // c
+    pr, pi = bank.pow_re, bank.pow_im               # [Og, M, S+1]
+    p0r, p0i = pr[..., :c], pi[..., :c]             # lam^0 .. lam^{C-1}
+    p1r, p1i = pr[..., 1:c + 1], pi[..., 1:c + 1]   # lam^1 .. lam^C
+    pcr, pci = pr[..., c], pi[..., c]
+    ker = be_re[..., None] * p0i + be_im[..., None] * p0r       # [O, M, C]
+    f_chunks = time_profile.reshape(o, n_chunks, c)
+    idx = torch.arange(c, device=time_profile.device)
+    delta = idx[None, :] - idx[:, None]             # [j, c] -> c - j
+    toep = (f_chunks[:, :, delta.clamp(min=0)]
+            * (delta >= 0).to(time_profile.dtype))  # [O, K, C(j), C(c)]
+    f_rev = f_chunks.flip(-1)
+    if pr.shape[0] == 1:                            # shared tables
+        inj_re, inj_im = f_rev @ p0r[0].T, f_rev @ p0i[0].T     # [O, K, M]
+    else:
+        inj_re = torch.einsum("omd,okd->okm", p0r, f_rev)
+        inj_im = torch.einsum("omd,okd->okm", p0i, f_rev)
+    # the chunk-start states as complex numbers: two launches a chunk
+    # (the host's enqueue, not the card, bounds this loop)
+    inj = torch.complex(be_re, be_im)[:, None] * torch.complex(inj_re, inj_im)
+    lam_c = torch.complex(pcr, pci)
+    z = torch.complex(z_re, z_im)
+    qsq = torch.zeros_like(z_re)
+    for k in range(n_chunks):
+        q = torch.baddbmm(p1r * z.imag[..., None], ker, toep[:, k])
+        q.addcmul_(p1i, z.real[..., None])
+        qsq.add_(q.square_().sum(dim=-1))
+        z = torch.addcmul(inj[:, k], lam_c, z)
+    return torch.sqrt(qsq) * bank.mask
 
 
 def step_block_blocked(

@@ -88,6 +88,18 @@ def _host(x) -> np.ndarray:
     return np.asarray(x)
 
 
+def _thread_first_use(device: torch.device) -> None:
+    """PyTorch keeps its cuBLAS handle and workspace per thread, so the
+    session's warmup on the caller's thread does not spare a new thread
+    their creation (tens of ms at its first matrix product). Make them
+    here, with one small product of each kind the block steps use, an FFT
+    pair and a device-to-host copy."""
+    x = torch.ones((8, 8, 8), device=device)
+    y = torch.bmm(x, x) + torch.einsum("om,oms->os", x[0], x) @ x[0]
+    y = y + torch.fft.irfft(torch.fft.rfft(y, n=16), n=16)[..., :8]
+    y.cpu()
+
+
 class LatestWins:
     """Capacity-1 slot: writers overwrite, reader takes-and-clears.
 
@@ -214,6 +226,7 @@ class StreamingEngine:
         self.health = BufferHealth()
         self.profiler = BlockProfiler(session.config.block_size, SAMPLE_RATE)
         self._stop = threading.Event()
+        self._ready = threading.Event()   # the synth thread is warm
         self._synth_thread: threading.Thread | None = None
         self._consume_thread: threading.Thread | None = None
         self._last_block: np.ndarray | None = None
@@ -600,10 +613,13 @@ class StreamingEngine:
             device = self.session.bank.device
             if device.type == "cuda":
                 torch.cuda.set_device(device)
+                _thread_first_use(device)
+            self._ready.set()
             self._synth_loop_inner()
         except BaseException as e:  # noqa: BLE001 — surfaced via .error
             self.error = e
             self._stop.set()
+            self._ready.set()
 
     def _synth_loop_inner(self) -> None:
         while not self._stop.is_set():
@@ -683,7 +699,12 @@ class StreamingEngine:
             target=self._synth_loop, name="pbso-synth", daemon=True)
         self._consume_thread = threading.Thread(
             target=self._consume_loop, name="pbso-audio", daemon=True)
+        self._ready.clear()
         self._synth_thread.start()
+        # session.warmup ran on this thread; what the library keeps per
+        # thread is made on the synthesis thread before its first block
+        # (_thread_first_use), and start() returns once that is done
+        self._ready.wait()
         self._consume_thread.start()
 
     def stop(self) -> None:

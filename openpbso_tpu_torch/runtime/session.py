@@ -524,9 +524,10 @@ class ModalSession:
         use, and none of it may land inside a live stream: the CUDA
         library (nvcc on a cold cache, then its load), the fused kernel's
         launch plan and tile-major tables, the span tables of each chunk
-        size (host float64), both AR table layouts, cuBLAS and cuFFT
-        handles and plans, the FFAT lookup, and the caching allocator's
-        first blocks of each size. The variants are those that can fire
+        size (host float64), both AR table layouts, this thread's cuBLAS
+        handle and the cuFFT plans, the FFAT lookup, and the caching
+        allocator's first blocks of each size (the engine's synthesis
+        thread makes its own cuBLAS handle, engine._thread_first_use). The variants are those that can fire
         for this session:
 
         - the full step for every slot bucket (sustained off), and the

@@ -503,6 +503,13 @@ def test_engine_matches_jax_engine_on_one_script(dberr):
     assert dberr(got, ref) <= -100
 
 
+def test_thread_first_use_runs_on_any_device():
+    """The synthesis thread's first-use pass (made for the card's
+    per-thread library handles) is plain torch on the given device."""
+    from openpbso_tpu_torch.runtime.engine import _thread_first_use
+    _thread_first_use(torch.device("cpu"))
+
+
 def test_full_event_queue_drops():
     engine, _ = _engine(RawCollectorSink(), force_queue_depth=4)
     results = [engine.hit(0, np.ones(16)) for _ in range(6)]

@@ -6,6 +6,8 @@ skip it there):
 
     python -m pytest --noconftest -m cuda tests/test_torch_gpu.py -q
 """
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -358,3 +360,183 @@ def test_drags_render_per_block_and_by_span(cuda):
     assert np.isfinite(mixes["span"]).all()
     assert np.abs(mixes["span"]).max() > 0
     assert _db(mixes["span"], mixes["block"]) <= -60
+
+
+# ----------------------------------------------- the live stream on the card
+
+GOLDEN_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                          "golden")
+
+
+@pytest.mark.parametrize("name", ["impulse_24modes_quarter_sec.npy",
+                                  "cpp_reference_point_1s.npy"])
+def test_fused_kernel_vs_golden(cuda, name):
+    """The fused kernel at S = 512, C = 64 against the committed goldens
+    of the float64 oracle and the compiled C++ reference: 24 modes struck
+    by a unit impulse at sample 0 under the unit transfer, so the render
+    at another block size is the same waveform, cut to the golden's
+    length. <= -100 dB."""
+    from openpbso_tpu_torch.config import UNIT_TRANSFER
+    from openpbso_tpu_torch.ops.coeffs import bank_from_material
+    ref = np.load(os.path.join(GOLDEN_DIR, name)).astype(np.float64)
+    md = synth_mode_data(24, 8, seed=0)
+    space = np.random.default_rng(3).standard_normal(24)
+    bank = bank_from_material(CERAMIC.density, md.omega_squared,
+                              CERAMIC.alpha, CERAMIC.beta, block_size=512,
+                              device=cuda)
+    m = bank.num_modes
+    sp = torch.zeros((1, m), device=cuda)
+    sp[0, :24] = torch.as_tensor(space, dtype=torch.float32)
+    tr = torch.full((1, m), UNIT_TRANSFER, device=cuda)
+    zr = zi = torch.zeros((1, m), device=cuda)
+    out = []
+    before = fi.LAUNCHES
+    n_blocks = -(-ref.shape[0] // 512)
+    for blk in range(n_blocks):
+        tp = torch.zeros((1, 512), device=cuda)
+        if blk == 0:
+            tp[0, 0] = 1.0
+        zr, zi, sound, _ = fi.step_block_fused(
+            zr, zi, bank, sp if blk == 0 else sp * 0, tp, tr)
+        out.append(sound[0].cpu().numpy())
+    assert fi.LAUNCHES == before + n_blocks
+    assert _db(np.concatenate(out)[:ref.shape[0]], ref) <= -100
+
+
+def _live_session(device, smooth=True, lam=False):
+    from openpbso_tpu_torch.ops.ffat import build_ffat
+    from openpbso_tpu_torch.utils.synth import synth_fatcube
+    lam64, b, v = _modes(6, 40, False)
+    bank = build_modal_bank(lam64, b, v, block_size=256, device=device)
+    ffat = build_ffat({i: synth_fatcube(i, 200.0 * (i + 1), n=6)
+                       for i in range(40)}, bank.num_modes, device=device)
+    sess = ModalSession(bank, ffat, SolverConfig(block_size=256,
+                                                 smooth_transfer=smooth),
+                        lam64=lam64 if lam else None)
+    sess.set_listener(np.array([0.6, 0.4, 0.9]))
+    return sess
+
+
+def test_xfade_block_against_fused_renders(cuda):
+    """A ramped listener move on the fused backend goes through the blocked
+    form and equals the blend of the two constant-row renders through the
+    kernel (<= -90 dB); a ramp from a row to itself is the plain step."""
+    import dataclasses
+
+    from openpbso_tpu_torch.runtime.solver import (step_block,
+                                                   step_block_xfade)
+    sess = _live_session(cuda, smooth=False)
+    rng = np.random.default_rng(2)
+    sess.hit(0, rng.standard_normal(40), kind="gaussian", width_us=900.0)
+    sess.hit(4, rng.standard_normal(40), kind="gaussian", width_us=900.0)
+    sess.render(2)
+    row_a = sess.state.transfer
+    sess.set_listener(np.array([-0.3, 0.8, 0.5]))
+    state, row_b = sess.state, sess.state.transfer
+    kw = dict(block_size=256, backend="auto", with_sustained=False)
+    before = fi.LAUNCHES
+    new, sound, _, _ = step_block_xfade(state, sess.bank, sess.gains, row_a,
+                                        **kw)
+    noop = step_block_xfade(state, sess.bank, sess.gains, row_b, **kw)[1]
+    assert fi.LAUNCHES == before            # routed to the blocked form
+    const = [step_block(dataclasses.replace(state, transfer=r), sess.bank,
+                        sess.gains, **kw) for r in (row_a, row_b)]
+    assert fi.LAUNCHES == before + 2
+    ramp = torch.arange(1, 257, device=cuda, dtype=torch.float32) / 256
+    blend = const[0][1] + ramp * (const[1][1] - const[0][1])
+    assert float(sound.abs().max()) > 0
+    assert _db(sound.cpu(), blend.cpu()) <= -90
+    assert _db(noop.cpu(), const[1][1].cpu()) <= -90
+    assert _db(new.z_im.cpu(), const[1][0].z_im.cpu()) <= -90
+
+
+def test_qnorm_on_the_fused_backend(cuda):
+    """compute_qnorm leaves the kernel's step bitwise as it was and takes
+    the telemetry from the blocked form; the probe advances nothing."""
+    from openpbso_tpu_torch.runtime.solver import step_block
+    from openpbso_tpu_torch.runtime.state import clone_state, state_leaves
+    sess = _live_session(cuda)
+    rng = np.random.default_rng(3)
+    sess.hit(1, rng.standard_normal(40), kind="gaussian", width_us=900.0)
+    sess.render(2)
+    kw = dict(block_size=256, with_sustained=False)
+    before = fi.LAUNCHES
+    plain = step_block(sess.state, sess.bank, sess.gains, backend="auto",
+                       **kw)
+    withq = step_block(sess.state, sess.bank, sess.gains, backend="auto",
+                       compute_qnorm=True, **kw)
+    assert fi.LAUNCHES == before + 2
+    assert torch.equal(withq[1], plain[1])
+    assert torch.equal(withq[0].z_im, plain[0].z_im)
+    scan = step_block(sess.state, sess.bank, sess.gains, backend="scan",
+                      compute_qnorm=True, **kw)[3]
+    assert withq[3].shape == (6, sess.bank.num_modes)
+    assert _db(withq[3].cpu(), scan.cpu()) <= -100
+    kept, clock = clone_state(sess.state), sess.sample_clock
+    probe = sess.qnorm_probe()
+    assert probe.is_cuda and float(probe.max()) > 0
+    assert sess.sample_clock == clock
+    for a, b in zip(state_leaves(kept), state_leaves(sess.state)):
+        assert torch.equal(a, b) if isinstance(a, torch.Tensor) else a == b
+
+
+def test_engine_checkpoint_round_trip_across_devices(cuda, tmp_path):
+    """A snapshot of a running CUDA session, taken through engine.control:
+    a fresh CUDA session restored from it renders the next blocks bitwise
+    as the running one did, drags and a retuned AR table included; the
+    same file loads into a CPU session, whose own snapshot loads back."""
+    import time
+
+    from openpbso_tpu_torch.runtime import (RawCollectorSink,
+                                            StreamingEngine, load_session,
+                                            save_session)
+    from openpbso_tpu_torch.runtime.state import state_leaves
+    sess = _live_session(cuda)
+    engine = StreamingEngine(sess, RawCollectorSink(), qnorm_every=4)
+    rng = np.random.default_rng(4)
+    engine.hit(0, rng.standard_normal(40), kind="gaussian", width_us=900.0)
+    engine.start()
+    engine.sustained_start(2, rng.standard_normal(40))
+    engine.set_ar_params(2, a=(0.6, 0.2), sigma=0.003, mu=0.1)
+    deadline = time.time() + 120
+    while engine._blocks_done < 12 and time.time() < deadline:
+        time.sleep(0.001)
+    path = str(tmp_path / "live.npz")
+    box = {}
+
+    def snapshot(s):
+        save_session(path, s)
+        box["next"] = s.render(8)
+
+    assert engine.control(snapshot)
+    engine.stop()
+    assert engine.error is None and engine.latest_qnorm() is not None
+    fresh = _live_session(cuda)
+    load_session(path, fresh)
+    assert fresh._sus_active[2] and tuple(fresh._ar_host[2]) == (0.6, 0.2)
+    assert np.array_equal(fresh.render(8), box["next"])
+    assert np.abs(box["next"]).max() > 0
+    host = _live_session("cpu")
+    load_session(path, host)
+    assert all(t.device.type == "cpu" for t in state_leaves(host.state)
+               if isinstance(t, torch.Tensor))
+    back = str(tmp_path / "host.npz")
+    save_session(back, host)
+    again = _live_session(cuda)
+    load_session(back, again)
+    assert all(t.is_cuda for t in state_leaves(again.state)
+               if isinstance(t, torch.Tensor))
+    assert np.array_equal(again.render(8), box["next"])
+
+
+def test_warmup_leaves_no_trace_on_the_card(cuda):
+    sessions = [_live_session(cuda, lam=True) for _ in range(2)]
+    rng = np.random.default_rng(5)
+    vec = rng.standard_normal(40)
+    for sess in sessions:
+        sess.hit(3, vec, kind="gaussian", width_us=900.0)
+        sess.sustained_start(1, vec)
+    sessions[0].warmup(qnorm=True, span_blocks=(1, 4))
+    assert np.array_equal(sessions[0].render(6), sessions[1].render(6))
+    assert np.array_equal(sessions[0].render_multi(8, 4),
+                          sessions[1].render_multi(8, 4))
