@@ -74,17 +74,52 @@ Phases, in order; any failure raises and the script exits non-zero:
    dispatch imply without the session (reckon_launches); the profiler's
    per-block statistics, warmup seconds and first block; (e) the fused
    engine paced at the audio rate for ~3 s with hits arriving live: no
-   missed or late block, p99 under the block's deadline, and the device's
-   idle share; (f) a snapshot of the running session taken through
+   late block that a stall of the whole process (a watchdog thread's late
+   wake) does not explain, no missed block beyond the late ones, p99
+   under the block's deadline, and the device's idle share; (f) a snapshot of the running session taken through
    engine.control, restored into a fresh session: both render the next 16
-   blocks bitwise equal, drags and a retuned AR table included.
+   blocks bitwise equal, drags and a retuned AR table included;
+8. the spatial path: SCENE_MODELS synthetic model directories of M modes,
+   written by worker processes while phases 3-6 run, loaded and placed as
+   O instances on a grid: a binaural Scene with ITD (interaural time
+   difference: complex [2, O, M] transfer rows), smooth listener moves and
+   compressed FFAT maps (compress_map, uint8), a heterogeneous O x M bank
+   with its float64 eigenvalues. (a) compute_transfer from both textures
+   against the same calls on CPU tensors (<= -100 dB), the textures
+   differ, set_use_compressed switches the rows at once with no rebuild;
+   one lookup of both ears equals one call per ear bitwise; (b) a
+   binaural Scene's shared-state rows (blocked form) against the
+   replicated layout (2*O rows through fused_block) per channel (<= -90
+   dB); (c) the ITD Scene per block against render_multi (16 blocks a
+   span, <= -90 dB), the span kernels on the render's own L = 2 complex-row inputs
+   (chunk_scan bitwise, toeplitz_conv <= -110 dB and repeatable), launch
+   counts, per-block and span ms; (d) Scene.render_moving along a 64-block
+   world path, held and ramped (binaural Scenes without and with
+   smooth_transfer), against the per-move loop (<= -90 dB), and
+   render_doppler on that path: silent before the first wavefront, and at
+   c = 1e12 equal to render_moving (<= -90 dB); (e) StreamingEngine
+   streams of ~200 blocks: the ITD Scene through DopplerPostMix at
+   lookahead 1 and 4 and a single-listener Scene through HRTFPostMix on
+   the fused path (first 20 blocks against an offline per-block render
+   through a fresh post-mix, <= -90 dB; launches from start() to stop()
+   against the dispatch log and the recorded events; HRTF process_span
+   against per-block processing <= -90 dB), then the Doppler stream paced
+   for 3 s (missed, late blocks and p99 reported, not gated). Every
+   render starts from the Scene's own session as it was built (as_built);
+   the HRTF stream's Scene alone gets a session without span tables; (f)
+   per-client serving: a listener_offsets Scene of 4 listeners and the
+   same Scene with [4, 3] world rows through DopplerPostMix(num_listeners
+   =4), each per block against one span (<= -90 dB). Prints the binaural
+   per-block and span ms, the span RTF, set_listener's latency with ITD
+   and the compressed lookup's ms beside the card's name and power limit.
 
 Every timed kernel also gets its device time: the torch.profiler duration
 of one launch, median over 30 calls (CUDA events time the host's enqueue
 as well where it is the longer). The last two lines of stdout are the
 kernels' JSON summary (each kernel's launches on its path, error, ms,
 device ms, plain and library ms, and its bound from bench/roofline.py at
-the timed shape) and {"ok": true, "device": {...}}.
+the timed shape) and {"ok": true, "device": {...}}. Each phase prints its
+seconds.
 """
 from __future__ import annotations
 
@@ -93,11 +128,14 @@ import contextlib
 import json
 import math
 import os
+import shutil
 import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
+import weakref
 
 import numpy as np
 
@@ -118,6 +156,14 @@ ENGINE_DRAGGED = 4           # objects dragged live in 7d
 QNORM_EVERY = 8
 PACED_SECONDS = 3.0          # phase 7e
 CHECKPOINT_BLOCKS = 16       # phase 7f
+SCENE_MODELS = 4             # phase 8: model directories the O instances
+#                              cycle through (a heterogeneous bank)
+SCENE_SPACING = 0.6          # meters between grid neighbours
+SCENE_LISTENER = np.array([0.3, 0.2, 1.5])   # the world listener
+SCENE_LAST_HIT = 12          # no phase-8 hit later than this block
+SPATIAL_BLOCKS = 49          # 8b, 8c: a ramp block and three 16-block spans
+PER_CLIENT = 4               # 8f's listeners
+PER_CLIENT_BLOCKS = 8
 TOEPLITZ_DB = -110.0         # the 3xTF32 conv against its FP32 twin
 FUSED_DB = -110.0            # the 3xTF32 fused step against its FP32 twin
 TOEPLITZ_SHAPES = (   # the span's short chunks: label, (O, L, K, X, C)
@@ -239,27 +285,33 @@ def time_ms(fn, runs=TIMED_RUNS) -> float:
     return statistics.median(a.elapsed_time(b) for a, b in pairs)
 
 
-def device_ms(fn, kernel, runs=TIMED_RUNS) -> float:
+def device_ms(fn, kernel, runs=TIMED_RUNS, traces=3) -> float:
     """Device time (ms) of one launch of the CUDA kernel ``kernel`` that
     ``fn`` makes, from torch.profiler's trace of ``runs`` calls: the median
-    duration. The tracer may drop a few records of a long window; raises
-    when it holds fewer than half the launches or more than one a call."""
+    duration. The tracer may drop records of a window, now and then all of
+    them: a trace holding fewer than half the launches is taken again, up
+    to ``traces`` times; more than one launch a call raises at once."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(runs):
-            fn()
-        torch.cuda.synchronize()
-    times = [e.time_range.elapsed_us() for e in prof.events()
-             if e.device_type == DeviceType.CUDA and kernel in e.name]
-    check(runs // 2 <= len(times) <= runs,
-          f"the profiler saw {len(times)} launches of {kernel} in {runs} "
-          "calls")
-    return statistics.median(times) / 1e3
+    for _ in range(traces):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(runs):
+                fn()
+            torch.cuda.synchronize()
+        times = [e.time_range.elapsed_us() for e in prof.events()
+                 if e.device_type == DeviceType.CUDA and kernel in e.name]
+        check(len(times) <= runs, f"the profiler saw {len(times)} launches "
+              f"of {kernel} in {runs} calls")
+        if len(times) >= runs // 2:
+            return statistics.median(times) / 1e3
+        print(f"device time: the profiler kept {len(times)} of {runs} "
+              f"launches of {kernel}; tracing again", flush=True)
+    check(False, f"the profiler kept fewer than {runs // 2} of {runs} "
+          f"launches of {kernel} in {traces} traces")
 
 
 def enqueue_ms(fn, runs=TIMED_RUNS) -> float:
@@ -402,10 +454,7 @@ def session_scene(bank, rng) -> dict:
     FFAT maps, per-object listeners, the hit script and the sample at which
     its last slot expires."""
     from openpbso_tpu_torch.utils.synth import synth_fatcube
-    from openpbso_tpu_torch.config import SAMPLE_RATE
     from openpbso_tpu_torch.ops.ffat import build_ffat
-    from openpbso_tpu_torch.ops.forces import (FORCE_GAUSSIAN, FORCE_HERTZ,
-                                               FORCE_POINT, slot_duration)
     t = time.perf_counter()
     freqs = np.geomspace(120.0, 15000.0, M)
     ffat = build_ffat({i: synth_fatcube(i, float(freqs[i]), n=16)
@@ -414,9 +463,17 @@ def session_scene(bank, rng) -> dict:
     listeners = rng.uniform(-1.0, 1.0, (O, 3)) * 2.0
     listeners[:, 2] += 1.0
     hits = hit_script(rng, O, M, S)
+    return dict(bank=bank, ffat=ffat, listeners=listeners, hits=hits,
+                last_expiry=script_expiry(hits))
 
-    # blocks that are not idle: every block before the last slot expires
-    # (a future-dated slot keeps the scene live until it has fired)
+
+def script_expiry(hits) -> int:
+    """The sample at which a hit script's last slot expires: every block
+    before it is busy (a future-dated slot keeps the scene live until it
+    has fired)."""
+    from openpbso_tpu_torch.config import SAMPLE_RATE
+    from openpbso_tpu_torch.ops.forces import (FORCE_GAUSSIAN, FORCE_HERTZ,
+                                               FORCE_POINT, slot_duration)
     code = {"point": FORCE_POINT, "gaussian": FORCE_GAUSSIAN,
             "hertz": FORCE_HERTZ}
     last_expiry = 0
@@ -425,8 +482,7 @@ def session_scene(bank, rng) -> dict:
                  else max(1, int(h["width_us"] / 1e6 * SAMPLE_RATE)))
         last_expiry = max(last_expiry, (h["when"] or 0)
                           + slot_duration(code[h["kind"]], width, S))
-    return dict(bank=bank, ffat=ffat, listeners=listeners, hits=hits,
-                last_expiry=last_expiry)
+    return last_expiry
 
 
 def phase_session(scene) -> dict:
@@ -1179,53 +1235,68 @@ def phase_moving(scene) -> dict:
     return out
 
 
+def fused_rows(sess) -> bool:
+    """Whether the session's full blocks launch fused_block: the backend
+    the solver picks for its rows (solver.block_backend; listener and
+    complex rows take the blocked form)."""
+    from openpbso_tpu_torch.runtime.solver import block_backend
+    return block_backend(sess.state, sess.config.backend,
+                         sess.bank) == "fused"
+
+
 def dispatch_log(sess) -> list:
     """Wrap the session's dispatch methods so that each call appends
-    (kind, blocks, with_sustained) to the returned list, resolved from the
-    host mirrors exactly as the method resolves them. Warmup's calls are
+    (kind, blocks, with_sustained, fused) to the returned list, resolved
+    from the host mirrors and rows exactly as the method resolves them
+    (``fused``: a full block through fused_block). Warmup's calls are
     logged like the stream's."""
     log = []
     full, xfade = sess._step_full, sess._step_xfade
     decay, span = sess._step_decay, sess._step_span
+    span_sound = sess._step_span_sound
 
     def sustained(flag):
         return sess._with_sustained() if flag is None else flag
 
     def _full(with_sustained=None, num_slots="auto"):
-        log.append(("full", 1, sustained(with_sustained)))
+        log.append(("full", 1, sustained(with_sustained), fused_rows(sess)))
         return full(with_sustained, num_slots)
 
     def _xfade(prev, with_sustained=None, num_slots="auto"):
-        log.append(("xfade", 1, sustained(with_sustained)))
+        log.append(("xfade", 1, sustained(with_sustained), False))
         return xfade(prev, with_sustained, num_slots)
 
     def _decay():
-        log.append(("decay", 1, False))
+        log.append(("decay", 1, False, False))
         return decay()
 
-    def _span(n, num_slots="auto", idle=None, with_sustained=None,
-              ar_per_object=False):
-        if idle is None:
-            idle = sess._idle() and sess.config.decay_fast_path
-        log.append(("idle_span", n, False) if idle
-                   else ("span", n, sustained(with_sustained)))
-        return span(n, num_slots, idle, with_sustained, ar_per_object)
+    def spans(inner):
+        # _step_span, or _step_span_sound when a post-mix takes the span
+        def _span(n, num_slots="auto", idle=None, with_sustained=None,
+                  ar_per_object=False):
+            if idle is None:
+                idle = sess._idle() and sess.config.decay_fast_path
+            log.append(("idle_span", n, False, False) if idle
+                       else ("span", n, sustained(with_sustained), False))
+            return inner(n, num_slots, idle, with_sustained, ar_per_object)
+        return _span
 
     sess._step_full, sess._step_xfade = _full, _xfade
-    sess._step_decay, sess._step_span = _decay, _span
+    sess._step_decay, sess._step_span = _decay, spans(span)
+    sess._step_span_sound = spans(span_sound)
     return log
 
 
 def expected_launches(log) -> dict:
     """The kernels' launches that a dispatch log of a heterogeneous CUDA
-    session implies: a full block steps through fused_block, plus ar_block
-    with the sustained channel; an xfade block goes through the blocked
-    form; a span is one chunk_scan, one toeplitz_conv unless idle, and with
-    the channel one ar_noise and the noise's toeplitz_conv."""
+    session implies: a full block steps through fused_block where its rows
+    take it, plus ar_block with the sustained channel; an xfade block goes
+    through the blocked form; a span is one chunk_scan, one toeplitz_conv
+    unless idle, and with the channel one ar_noise and the noise's
+    toeplitz_conv."""
     want = dict.fromkeys(KERNELS, 0)
-    for kind, _, with_sustained in log:
-        if kind == "full":
-            want["fused_block"] += 1
+    for kind, _, with_sustained, fused in log:
+        want["fused_block"] += fused
         if kind in ("full", "xfade"):
             want["ar_block"] += bool(with_sustained)
         if kind in ("span", "idle_span"):
@@ -1236,7 +1307,7 @@ def expected_launches(log) -> dict:
     return want
 
 
-def reckon_launches(recorded, sizes, spans, moved) -> tuple:
+def reckon_launches(recorded, sizes, spans, moved, fused) -> tuple:
     """The launches an engine stream over a heterogeneous CUDA session must
     make, reckoned without the session: from the events the engine recorded
     as it applied them (each stamped with its block's first sample) and the
@@ -1247,8 +1318,10 @@ def reckon_launches(recorded, sizes, spans, moved) -> tuple:
     the noise's toeplitz_conv per span. With ``spans`` (a session holding
     lam64) every dispatch is one span unless a move is pending, and then
     its blocks go one by one; ``moved`` says whether one is pending when
-    the stream starts. The stream retunes only sigma and mu, so the span
-    stays eligible throughout. Returns (launches, dispatch kinds)."""
+    the stream starts; ``fused`` whether the session's rows take a full
+    block through fused_block (fused_rows). The stream retunes only sigma
+    and mu, so the span stays eligible throughout. Returns (launches,
+    dispatch kinds)."""
     from openpbso_tpu_torch.config import SAMPLE_RATE
     from openpbso_tpu_torch.ops.forces import (FORCE_GAUSSIAN, FORCE_HERTZ,
                                                FORCE_POINT, slot_duration)
@@ -1271,7 +1344,7 @@ def reckon_launches(recorded, sizes, spans, moved) -> tuple:
             return "decay"
         else:
             kind = "full"
-            want["fused_block"] += 1
+            want["fused_block"] += fused
         want["ar_block"] += drag
         return kind + ("+drag" if drag else "")
 
@@ -1425,24 +1498,25 @@ def engine_stream(label, scene, lam64, lookahead, rng) -> dict:
     want = expected_launches(run_log)
     check(counts == want, f"{label}: launches {counts} != {want} reckoned "
           "from the dispatch log")
-    # the stream's own launches against the event record: nothing of the
-    # session's routing enters this reckoning
+    # the stream's own launches against the event record: of the
+    # session's routing only the rows' backend enters this reckoning
     streamed = {k: counts[k] - warmed["launches"][k] for k in KERNELS}
     # live_session set the listener of a smooth_transfer session: block 0
     # ramps from the unit transfer, one xfade beside the recorded moves
     reckoned, kinds = reckon_launches(engine.recorded, sizes,
-                                      lam64 is not None, moved=True)
+                                      lam64 is not None, moved=True,
+                                      fused=fused_rows(sess))
     check(streamed == reckoned, f"{label}: the stream launched {streamed}, "
           f"its events and block counts give {reckoned} ({kinds})")
     check(sum(sizes) == len(produced) >= ENGINE_BLOCKS
-          and sum(n for _, n, _ in run_log[warmed["dispatches"]:])
+          and sum(n for _, n, _, _ in run_log[warmed["dispatches"]:])
           == len(produced),
           f"{label}: {len(produced)} blocks produced, dispatches {sizes}")
     moves = sum(1 for _, ev in engine.recorded
                 if type(ev).__name__ == "TransferEvent")
     xfades = kinds.get("xfade", 0) + kinds.get("xfade+drag", 0)
     check(moves >= 3 and xfades == moves + 1
-          and sum(1 for kind, _, _ in run_log[warmed["dispatches"]:]
+          and sum(1 for kind, *_ in run_log[warmed["dispatches"]:]
                   if kind == "xfade") == moves + 1,
           f"{label}: {moves} listener moves, dispatches {kinds}")
     if lam64 is not None and lookahead == 1:
@@ -1497,6 +1571,48 @@ def phase_engine(scene, lam64, rng) -> dict:
             for k in KERNELS}
 
 
+@contextlib.contextmanager
+def host_stalls():
+    """A watchdog thread that sleeps 1 ms at a time and records each wake
+    more than 3 ms late as (end, length) on the perf_counter clock: while
+    the whole process stands still (descheduled by the OS, or the
+    interpreter held), it cannot wake either."""
+    stalls, stop = [], threading.Event()
+
+    def watch():
+        while not stop.is_set():
+            t = time.perf_counter()
+            time.sleep(0.001)
+            now = time.perf_counter()
+            if now - t > 0.004:
+                stalls.append((now, now - t))
+    thread = threading.Thread(target=watch, daemon=True)
+    thread.start()
+    try:
+        yield stalls
+    finally:
+        stop.set()
+        thread.join()
+
+
+def unexplained_late(writes, dispatches, stalls, deadline_s) -> list:
+    """The late writes of a paced stream (times) that no host stall
+    explains. A late write is the host's when the watchdog saw the process
+    stand still for 5 ms or more, ending within the two blocks before the
+    write (the queue's depth) or just after it, and no dispatch in that
+    window ran past the deadline; any other late write is the code's."""
+    out = []
+    for t in (t for t, on_time in writes if not on_time):
+        lo, hi = t - 2 * deadline_s, t + 0.005
+        stalled = any(lo <= end <= hi and length >= 0.005
+                      for end, length in stalls)
+        slow = any(a < hi and b > lo and b - a >= deadline_s
+                   for a, b in dispatches)
+        if slow or not stalled:
+            out.append(t)
+    return out
+
+
 def phase_paced(scene, rng) -> dict:
     """Phase 7e: the fused engine against a consumer paced at the audio
     rate, hits arriving live; then the device's idle share."""
@@ -1511,26 +1627,49 @@ def phase_paced(scene, rng) -> dict:
         sink = RealTimePacerSink()
         engine = StreamingEngine(sess, sink, qnorm_every=QNORM_EVERY)
         _, pairs, _ = tap_dispatches(engine, events=events)
+        # host times of each dispatch and each write, for the stall gate
+        dispatches, writes = [], []
+        synth, write = engine._synth_once, sink.write
+
+        def timed_synth():
+            t = time.perf_counter()
+            blocks = synth()
+            dispatches.append((t, time.perf_counter()))
+            return blocks
+
+        def timed_write(block):
+            t = time.perf_counter()
+            on_time = write(block)
+            writes.append((t, on_time))
+            return on_time
+        engine._synth_once, sink.write = timed_synth, timed_write
         engine.start()
-        t0 = time.perf_counter()
-        n = 0
-        while time.perf_counter() - t0 < seconds:
-            check(engine.healthy, f"paced engine died: {engine.error!r}")
-            h = scene["hits"][n % len(scene["hits"])]
-            engine.hit(h["obj"], h["space"], kind=h["kind"],
-                       width_us=h["width_us"], amp=h["amp"])
-            n += 1
-            time.sleep(0.1)
-        wall = time.perf_counter() - t0
-        # read before stop(): the consumer books the block it was waiting
-        # for when the stream ends as one more miss
-        health = dict(health=engine.health.health,
-                      missed=engine.health.missed,
-                      late_blocks=sink.late_blocks,
-                      paced_blocks=sink.total_blocks)
+        with host_stalls() as stalls:
+            t0 = time.perf_counter()
+            n = 0
+            while time.perf_counter() - t0 < seconds:
+                check(engine.healthy, f"paced engine died: {engine.error!r}")
+                h = scene["hits"][n % len(scene["hits"])]
+                engine.hit(h["obj"], h["space"], kind=h["kind"],
+                           width_us=h["width_us"], amp=h["amp"])
+                n += 1
+                time.sleep(0.1)
+            wall = time.perf_counter() - t0
+            # read before stop(): the consumer books the block it was
+            # waiting for when the stream ends as one more miss
+            health = dict(health=engine.health.health,
+                          missed=engine.health.missed,
+                          late_blocks=sink.late_blocks,
+                          paced_blocks=sink.total_blocks)
+            late = unexplained_late(list(writes), list(dispatches),
+                                    list(stalls), S / SAMPLE_RATE)
         engine.stop()
         torch.cuda.synchronize()
         check(engine.error is None, f"paced engine error {engine.error!r}")
+        health.update(host_stalls_over_5ms=[
+            [end - t0, length * 1e3] for end, length in stalls
+            if length >= 0.005],
+            late_without_host_stall=[t - t0 for t in late])
         return engine, health, pairs, wall, n
 
     engine, health, pairs, wall, n_hits = stream(PACED_SECONDS, True)
@@ -1541,9 +1680,15 @@ def phase_paced(scene, rng) -> dict:
                stats=st, deadline_ms=deadline_ms,
                dispatch_event_ms_sum=busy_ms,
                idle_share_by_events=1.0 - busy_ms / (1e3 * wall))
-    check(health["missed"] == 0, f"paced: {health['missed']} missed")
-    check(health["late_blocks"] == 0,
-          f"paced: {health['late_blocks']} late blocks")
+    print("engine, paced:", json.dumps(out), flush=True)   # before its gate
+    # a late block is the code's unless the process stood still beside it
+    # with no dispatch past the deadline (a shared host's stall); a missed
+    # block is a late one, or an underrun that no late write shows
+    check(not health["late_without_host_stall"],
+          f"paced: {health['late_blocks']} late blocks, at "
+          f"{health['late_without_host_stall']} s with no host stall")
+    check(health["missed"] <= health["late_blocks"],
+          f"paced: {health['missed']} missed, {health['late_blocks']} late")
     check(st["p99_ms"] < deadline_ms,
           f"paced: p99 {st['p99_ms']} ms >= {deadline_ms} ms")
     check(engine._blocks_done >= int(0.8 * PACED_SECONDS * SAMPLE_RATE / S),
@@ -1558,12 +1703,12 @@ def phase_paced(scene, rng) -> dict:
               "device_trace wrote no trace")
     kernel_us = sum(e.time_range.elapsed_us() for e in prof.events()
                     if e.device_type == DeviceType.CUDA)
-    out["profiled_seconds"] = wall_p
-    out["profiled_kernel_ms_sum"] = kernel_us / 1e3
-    out["idle_share_by_profiler"] = (
-        1.0 - kernel_us / 1e6 / wall_p if kernel_us > 0 else None)
-    print("engine, paced:", json.dumps(out), flush=True)
-    return out
+    profiled = {"profiled_seconds": wall_p,
+                "profiled_kernel_ms_sum": kernel_us / 1e3,
+                "idle_share_by_profiler": (1.0 - kernel_us / 1e6 / wall_p
+                                           if kernel_us > 0 else None)}
+    print("engine, paced, profiled:", json.dumps(profiled), flush=True)
+    return dict(out, **profiled)
 
 
 def phase_checkpoint(scene, rng) -> dict:
@@ -1639,6 +1784,755 @@ def phase_live(scene, lam64, rng) -> dict:
     return launches
 
 
+def write_scene_model(root, seed):
+    """One synthetic model directory of M modes (a worker of phase 8's
+    pool: its M FFAT maps take tens of seconds of host time)."""
+    from openpbso_tpu_torch.utils.synth import synth_model_dir
+    return synth_model_dir(root, "m", num_modes=M, seed=seed)
+
+
+def start_scene_models(root, seed):
+    """Write phase 8's model directories in worker processes while the
+    earlier phases run; returns (pool, futures)."""
+    import concurrent.futures
+    import multiprocessing
+    pool = concurrent.futures.ProcessPoolExecutor(
+        SCENE_MODELS, mp_context=multiprocessing.get_context("spawn"))
+    futures = [pool.submit(write_scene_model, os.path.join(root, f"m{i}"),
+                           seed + 11 + i) for i in range(SCENE_MODELS)]
+    return pool, futures
+
+
+def scene_instances(dirs):
+    """Phase 8's instances: the models loaded from their directories, O
+    instances cycling through them on a square grid, and each model's
+    compressed maps (compress_map, uint8 quantisation)."""
+    from openpbso_tpu_torch.io.meta import resolve_model_dir
+    from openpbso_tpu_torch.models import SceneInstance, load_model
+    from openpbso_tpu_torch.ops.ffat_fit import compress_map
+    t = time.perf_counter()
+    models = [load_model(resolve_model_dir(d, "m")) for d in dirs]
+    for mdl in models:
+        check(mdl.num_modes_audible == M and len(mdl.ffat_maps) == M,
+              f"a scene model has {mdl.num_modes_audible} audible modes and "
+              f"{len(mdl.ffat_maps)} maps, not {M}")
+    side = math.isqrt(O)
+    ij = np.stack(np.meshgrid(np.arange(side), np.arange(side),
+                              indexing="ij"), -1).reshape(-1, 2)
+    xy = (ij - (side - 1) / 2.0) * SCENE_SPACING
+    instances = [SceneInstance(models[i % len(models)],
+                               np.array([xy[i, 0], xy[i, 1], 0.0]),
+                               gain=1.0 + 0.1 * (i % 3)) for i in range(O)]
+    compressed = {id(mdl): {k: compress_map(v, jpeg_quality=None)
+                            for k, v in mdl.ffat_maps.items()}
+                  for mdl in models}
+    print(f"scene models: {len(models)} loaded and compressed in "
+          f"{time.perf_counter() - t} s", flush=True)
+    return instances, compressed
+
+
+def build_scene(instances, compressed=None, **kw):
+    """A Scene on the card (built without ``device=``); with
+    ``compressed`` its session's maps also carry the compressed texture."""
+    import torch
+    from openpbso_tpu_torch.models import Scene
+    from openpbso_tpu_torch.ops.ffat import build_ffat_hetero
+    t = time.perf_counter()
+    scene = Scene(instances, block_size=S, **kw)
+    if compressed is not None:
+        scene.session.ffat = build_ffat_hetero(
+            [inst.model.ffat_maps for inst in scene.instances],
+            scene.bank.num_modes, compressed_maps=[
+                compressed[id(inst.model)] for inst in scene.instances])
+    torch.cuda.synchronize()
+    check(scene.bank.device.type == "cuda" and not scene.bank.shared_tables,
+          f"scene bank on {scene.bank.device}, shared tables "
+          f"{scene.bank.shared_tables}")
+    print(f"scene {kw}: {scene.num_objects} rows x {scene.bank.num_modes} "
+          f"modes in {time.perf_counter() - t} s", flush=True)
+    keep_as_built(scene)
+    return scene
+
+
+AS_BUILT = weakref.WeakKeyDictionary()   # Scene -> (its attributes, its
+                                         # session's), as built
+
+
+def copied(attrs: dict) -> dict:
+    """Attributes with their arrays copied and the solver state cloned
+    (slots and the sustained channel are written in place); tensors that
+    are only ever replaced, the bank, the maps and the span-table cache
+    stay shared."""
+    from openpbso_tpu_torch.runtime.state import SolverState, clone_state
+    return {k: (v.copy() if isinstance(v, np.ndarray)
+                else clone_state(v) if isinstance(v, SolverState) else v)
+            for k, v in attrs.items()}
+
+
+def keep_as_built(scene):
+    AS_BUILT[scene] = (copied(vars(scene)), copied(vars(scene.session)))
+
+
+def as_built(scene):
+    """Put the Scene and its own session back as they were built (or as
+    keep_as_built last recorded them): the session's state, host mirrors
+    and gains, and the Scene's listener records. A method a phase wrapped
+    on the session (warmup, the dispatches) is unwrapped. Returns the
+    session."""
+    own, session = AS_BUILT[scene]
+    vars(scene).clear()
+    vars(scene).update(copied(own))
+    vars(scene.session).clear()
+    vars(scene.session).update(copied(session))
+    return scene.session
+
+
+def without_span_tables(scene):
+    """Give a single-listener Scene a session without the float64
+    eigenvalues that a Scene always passes on, so that the engine at
+    lookahead 1 steps per block through fused_block instead of taking
+    one-block spans; everything else as the Scene configured it."""
+    from openpbso_tpu_torch.runtime.session import ModalSession
+    old = scene.session
+    check(old.num_listeners == 1 and not old.auto_itd,
+          "without_span_tables takes a single-listener Scene")
+    scene.session = ModalSession(scene.bank, ffat=old.ffat,
+                                 config=old.config)
+    scene.session.gains = old.gains
+    scene.session.listener_frame = old.listener_frame
+    keep_as_built(scene)
+
+
+def scene_hits(rng, instances, future=True):
+    """Point, gaussian and hertz hits on every third logical instance at
+    a random vertex; with ``future`` three in four are future-dated
+    (block-aligned, no later than SCENE_LAST_HIT)."""
+    kinds = ("point", "gaussian", "hertz")
+    hits = []
+    for i, obj in enumerate(range(0, len(instances), 3)):
+        when = (None if i % 4 == 0 or not future
+                else int(rng.integers(1, SCENE_LAST_HIT + 1)) * S)
+        hits.append(dict(
+            index=obj, kind=kinds[i % 3],
+            vertex=int(rng.integers(0, instances[obj].model.num_vertices)),
+            width_us=float(rng.uniform(200.0, 2000.0)),
+            amp=float(rng.uniform(0.5, 1.5)), when=when))
+    return hits
+
+
+def apply_hits(scene, hits):
+    for h in hits:
+        scene.hit(h["index"], h["vertex"], kind=h["kind"],
+                  width_us=h["width_us"], amp=h["amp"], when=h["when"])
+
+
+def scene_setup(scene, hits, world=None):
+    """The Scene as built (as_built), the world listener and the hits: the
+    start of every phase-8 render."""
+    sess = as_built(scene)
+    scene.set_listener(SCENE_LISTENER if world is None else world)
+    apply_hits(scene, hits)
+    return sess
+
+
+def synced_blocks(sess, n_blocks):
+    """Step n_blocks one by one, each copied to the host; returns (mix,
+    host ms of each full block)."""
+    import torch
+    out, full_ms = [], []
+    for _ in range(n_blocks):
+        full = sess._xfade_from is None and not sess._idle()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out.append(sess.step()[1].cpu().numpy())
+        if full:
+            full_ms.append(1e3 * (time.perf_counter() - t))
+    return np.concatenate(out), full_ms
+
+
+def ffat_to_cpu(ffat):
+    import dataclasses
+    return dataclasses.replace(
+        ffat, cell_size=ffat.cell_size.cpu(), geom=dataclasses.replace(
+            ffat.geom, **{f.name: getattr(ffat.geom, f.name).cpu()
+                          for f in dataclasses.fields(ffat.geom)
+                          if getattr(ffat.geom, f.name) is not None}))
+
+
+def phase_compressed(scene, plain) -> dict:
+    """Phase 8a: compute_transfer from both textures against the same
+    calls on CPU tensors, the session's toggle, and set_listener's latency
+    with ITD (``scene``) and without (``plain``)."""
+    import torch
+    from openpbso_tpu_torch.ops.ffat import compute_transfer
+    sess = as_built(scene)
+    ffat = sess.ffat
+    rel = scene._relative_rows(SCENE_LISTENER)                # [2, O, 3]
+    p = torch.as_tensor(rel[0], dtype=torch.float32, device=ffat.geom.psi.device)
+    ffat_cpu = ffat_to_cpu(ffat)
+    rows = {}
+    out = {}
+    for compressed in (False, True):
+        label = "compressed" if compressed else "raw"
+        got = compute_transfer(ffat, p, compressed=compressed)
+        ref = compute_transfer(ffat_cpu, p.cpu(), compressed=compressed)
+        check(bool(torch.isfinite(got).all()) and float(got.max()) > 0,
+              f"{label} transfer not finite or zero")
+        out[f"{label}_db_vs_cpu"] = db_error(got.cpu().numpy(), ref.numpy())
+        check(out[f"{label}_db_vs_cpu"] <= -100.0,
+              f"{label} transfer {out[f'{label}_db_vs_cpu']} dB vs the CPU")
+        rows[label] = got
+    del ffat_cpu
+    check(not torch.equal(rows["raw"], rows["compressed"]),
+          "the compressed texture gives the raw rows")
+    out["db_compressed_vs_raw"] = db_error(rows["compressed"].cpu().numpy(),
+                                           rows["raw"].cpu().numpy())
+    out["compressed_transfer_ms"] = time_ms(
+        lambda: compute_transfer(ffat, p, compressed=True))
+    out["raw_transfer_ms"] = time_ms(lambda: compute_transfer(ffat, p))
+
+    # the session's toggle: at once, from the resident textures
+    scene.set_listener(SCENE_LISTENER)
+    raw = (sess.state.transfer.clone(), sess.state.transfer_im.clone())
+    check(tuple(raw[0].shape) == (2, O, M) and raw[1] is not None,
+          f"binaural ITD rows {tuple(raw[0].shape)}")
+    psi = (ffat.geom.psi.data_ptr(), ffat.geom.psi_c.data_ptr())
+    sess.set_use_compressed(True)
+    comp = (sess.state.transfer.clone(), sess.state.transfer_im.clone())
+    check(not torch.equal(comp[0], raw[0]), "the toggle left the rows")
+    scene.set_listener(SCENE_LISTENER)
+    check(torch.equal(sess.state.transfer, comp[0])
+          and torch.equal(sess.state.transfer_im, comp[1]),
+          "toggled rows differ from a compressed set_listener")
+    sess.set_use_compressed(False)
+    check(torch.equal(sess.state.transfer, raw[0])
+          and torch.equal(sess.state.transfer_im, raw[1]),
+          "toggling back did not restore the raw rows")
+    check(sess.ffat is ffat and psi == (ffat.geom.psi.data_ptr(),
+                                        ffat.geom.psi_c.data_ptr()),
+          "the toggle rebuilt the maps")
+    # set_listener's latency with ITD, without it, and its two lookups
+    def host_ms(fn, runs=10):
+        ms = []
+        for i in range(runs):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            fn(i)
+            torch.cuda.synchronize()
+            ms.append(1e3 * (time.perf_counter() - t))
+        return statistics.median(ms)
+    out["set_listener_itd_ms_median"] = host_ms(
+        lambda i: scene.set_listener(SCENE_LISTENER + 0.01 * i))
+    rows = torch.as_tensor(rel, dtype=torch.float32, device=p.device)
+    # the session looks both ears up in one call: each ear's row is the
+    # single-listener call's, bitwise
+    for compressed in (True, False):
+        sess.set_use_compressed(compressed)
+        both = sess._lookup(rows)
+        check(all(torch.equal(both[ear], compute_transfer(
+            ffat, rows[ear], compressed=compressed)) for ear in range(2)),
+            f"one lookup of both ears (compressed {compressed}) differs "
+            "from one call per ear")
+    out["both_ears_one_lookup_bitwise"] = True
+    out["set_listener_lookups_ms_median"] = host_ms(
+        lambda i: sess._lookup(rows))
+    as_built(plain)
+    out["set_listener_no_itd_ms_median"] = host_ms(
+        lambda i: plain.set_listener(SCENE_LISTENER + 0.01 * i))
+    print("compressed texture:", json.dumps(out), flush=True)
+    return out
+
+
+def phase_replicated(scene, instances, hits) -> tuple:
+    """Phase 8b: a binaural Scene's shared-state rows (blocked form, no
+    kernel; no ITD, which the replicated layout lacks) against the
+    replicated layout (2*O single-listener rows, fused_block), per block
+    over the same hits."""
+    import torch
+    expiry = script_expiry(hits)
+    scene_setup(scene, hits)
+    reset_launches()
+    shared_mix = scene.render(SPATIAL_BLOCKS)
+    shared_counts = read_launches()
+    rep = build_scene(instances, binaural=True, shared_state=False,
+                      smooth_transfer=True)
+    check(rep.num_objects == 2 * O and rep.session.num_listeners == 1
+          and tuple(rep.session.gains.shape) == (2 * O, 2),
+          "the replicated layout")
+    scene_setup(rep, hits)
+    reset_launches()
+    rep_mix = rep.render(SPATIAL_BLOCKS)
+    rep_counts = read_launches()
+    del rep
+    torch.cuda.empty_cache()
+    # block 0 ramps from the unit transfer (blocked form); then every
+    # busy block is one fused step, and none of the shared rows' blocks
+    want = dict.fromkeys(KERNELS, 0)
+    check(shared_counts == want, f"shared rows launched {shared_counts}")
+    want["fused_block"] = sum(1 for b in range(1, SPATIAL_BLOCKS)
+                              if b * S < expiry)
+    check(rep_counts == want and want["fused_block"] > 0,
+          f"replicated rows launched {rep_counts}, want {want}")
+    out = {"blocks": SPATIAL_BLOCKS, "launches": rep_counts}
+    for ch in range(2):
+        out[f"db_channel_{ch}"] = db_error(shared_mix[:, ch],
+                                           rep_mix[:, ch])
+        check(out[f"db_channel_{ch}"] <= -90.0,
+              f"shared vs replicated channel {ch}: "
+              f"{out[f'db_channel_{ch}']} dB")
+    check(float(np.abs(shared_mix).max()) > 0, "binaural render is silent")
+    print("shared vs replicated:", json.dumps(out), flush=True)
+    return out, rep_counts
+
+
+def phase_binaural_span(scene, hits) -> tuple:
+    """Phase 8c: the binaural ITD Scene per block and by render_multi; the
+    span kernels on the render's own L = 2 complex-row inputs."""
+    import torch
+    from openpbso_tpu_torch.config import SAMPLE_RATE
+    from openpbso_tpu_torch.ops import chunk_scan as k1
+    expiry = script_expiry(hits)
+    sess = scene_setup(scene, hits)
+    check(sess.state.transfer_im is not None
+          and tuple(sess.state.transfer.shape) == (2, O, M),
+          "the binaural ITD rows")
+    reset_launches()
+    per_block, full_ms = synced_blocks(sess, SPATIAL_BLOCKS)
+    check(read_launches() == dict.fromkeys(KERNELS, 0),
+          f"complex listener rows launched {read_launches()} per block")
+    sess = scene_setup(scene, hits)
+    t = time.perf_counter()
+    sess.span_tables_for(SPAN_DISPATCH)
+    table_s = time.perf_counter() - t
+    with capture_span_kernel_inputs() as captured:
+        reset_launches()
+        span_mix = scene.render_multi(SPATIAL_BLOCKS,
+                                      blocks_per_dispatch=SPAN_DISPATCH)
+        counts = read_launches()
+    # block 0 is the pending ramp, flushed as one blocked step; then spans
+    starts = list(range(1, SPATIAL_BLOCKS, SPAN_DISPATCH))
+    busy = sum(1 for b in starts if b * S < expiry)
+    check(0 < busy < len(starts), f"{busy} of {len(starts)} spans busy")
+    want = dict.fromkeys(KERNELS, 0)
+    want.update(chunk_scan=len(starts), toeplitz_conv=busy)
+    check(counts == want, f"binaural span launches {counts} != {want}")
+    for label, mix in (("per-block", per_block), ("span", span_mix)):
+        check(mix.shape == (SPATIAL_BLOCKS * S, 2)
+              and bool(np.isfinite(mix).all())
+              and float(np.abs(mix).max()) > 0,
+              f"binaural {label} render not finite or silent")
+    db = db_error(span_mix, per_block)
+    check(db <= -90.0, f"binaural span {db} dB vs per block")
+    g = captured[("toeplitz_conv", "busy")][0]
+    check(g.shape[1] == 2, f"the span's conv saw {g.shape[1]} listener rows")
+    kernels = check_dispatch_inputs(captured)
+    for kind in ("busy", "decay"):
+        args = captured[("chunk_scan", kind)]
+        got, plain = k1.chunk_scan(*args), k1.chunk_scan_reference(*args)
+        check(all(torch.equal(a, b) for a, b in zip(got, plain)),
+              f"chunk_scan ({kind} dispatch) not bitwise its twin")
+        kernels[f"chunk_scan_{kind}"]["bitwise"] = True
+
+    # synced span dispatches
+    sess = scene_setup(scene, hits)
+    sess.step()
+    span_ms = []
+    for b in starts:
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        sess._step_span(min(SPAN_DISPATCH, SPATIAL_BLOCKS - b)).cpu()
+        span_ms.append(1e3 * (time.perf_counter() - t))
+    out = {"blocks": SPATIAL_BLOCKS, "db_span_vs_per_block": db,
+           "launches": counts, "kernels_on_dispatch_inputs": kernels,
+           "table_build_s": table_s,
+           "per_block_full_ms_median": statistics.median(full_ms),
+           "span_ms": span_ms, "busy_span_ms": span_ms[0],
+           "span_rtf": (SPATIAL_BLOCKS - 1) * S / SAMPLE_RATE
+           / (1e-3 * sum(span_ms))}
+    print("binaural per block vs span:", json.dumps(out), flush=True)
+    return out, counts
+
+
+def phase_spatial_moving(scene, held, hits) -> dict:
+    """Phase 8d: Scene.render_moving along a world path, held (``held``: a
+    binaural Scene without smooth_transfer) and ramped (``scene``: with
+    it), against the per-move loop; render_doppler on the same path."""
+    from openpbso_tpu_torch.config import SAMPLE_RATE, SOUND_SPEED
+    ang = 0.15 * np.arange(MOVING_BLOCKS)
+    path = SCENE_LISTENER + 1.5 * np.stack(
+        [np.cos(ang) - 1.0, np.sin(ang), 0.2 * np.sin(2 * ang)], axis=1)
+    out = {"blocks": MOVING_BLOCKS}
+    # render_moving is a magnitude-FFAT path, as in the JAX package: the
+    # per-move loop it is held against runs on Scenes without ITD too
+    for label, sc in (("held", held), ("ramped", scene)):
+        smooth = sc.session.config.smooth_transfer
+        check(smooth == (label == "ramped") and not sc.session.auto_itd,
+              f"the {label} Scene's session")
+        scene_setup(sc, hits, world=path[0])
+        reset_launches()
+        t = time.perf_counter()
+        got = sc.render_moving(path, smooth=smooth)
+        seconds = time.perf_counter() - t
+        counts = read_launches()
+        check(counts == dict.fromkeys(KERNELS, 0),
+              f"render_moving ({label}) launched {counts}")
+        scene_setup(sc, hits, world=path[0])
+        ref = []
+        for p in path:
+            sc.set_listener(p)
+            ref.append(sc.step()[1].cpu().numpy())
+        ref = np.concatenate(ref)
+        check(got.shape == (MOVING_BLOCKS * S, 2)
+              and bool(np.isfinite(got).all())
+              and float(np.abs(got).max()) > 0,
+              f"render_moving ({label}) not finite or silent")
+        db = db_error(got, ref)
+        check(db <= -90.0, f"render_moving ({label}) {db} dB vs per move")
+        out[label] = {"db_vs_per_move": db,
+                      "ms_per_block": 1e3 * seconds / MOVING_BLOCKS}
+    ramped = got
+    scene_setup(scene, hits, world=path[0])
+    t = time.perf_counter()
+    dop = scene.render_doppler(path)
+    seconds = time.perf_counter() - t
+    check(dop.shape == ramped.shape and bool(np.isfinite(dop).all())
+          and float(np.abs(dop).max()) > 0,
+          "render_doppler not finite or silent")
+    # nothing arrives before the nearest ear's wavefront (the last sample
+    # before it interpolates toward the first emitted one)
+    # (per-sample distances interpolate between block starts)
+    r_min = min(np.linalg.norm(scene._relative_rows(p), axis=-1).min()
+                for p in path[:2])
+    first = int(np.floor(r_min * SAMPLE_RATE / SOUND_SPEED))
+    check(first > 1 and not np.any(dop[:first - 1]),
+          f"render_doppler sounds before the first wavefront ({first})")
+    # with a propagation delay of ~0 samples it is render_moving's render
+    scene_setup(scene, hits, world=path[0])
+    instant = scene.render_doppler(path, c=1e12)
+    db = db_error(instant, ramped)
+    check(db <= -90.0, f"render_doppler at c = 1e12: {db} dB vs moving")
+    out["doppler"] = {"first_arrival_sample": first,
+                      "db_instant_vs_render_moving": db,
+                      "db_vs_render_moving": db_error(dop, ramped),
+                      "ms_per_block": 1e3 * seconds / MOVING_BLOCKS}
+    print("spatial moving listener:", json.dumps(out), flush=True)
+    return out
+
+
+def spatial_stream(label, scene, sess, post_mix, lookahead, hits, seed, *,
+                   paced=False) -> dict:
+    """One engine stream of phase 8e over a Scene's session through a
+    post-mix: ``hits`` before start(), a world listener move every 20
+    blocks and 4 drags arriving live, qnorm every 8 blocks; unpaced into a
+    collector (~ENGINE_BLOCKS blocks, the launches from start() to stop()
+    against the session's dispatch log and the recorded events), or
+    paced for PACED_SECONDS (reported, not gated)."""
+    import torch
+    from openpbso_tpu_torch.runtime.audio import (RawCollectorSink,
+                                                  RealTimePacerSink)
+    from openpbso_tpu_torch.runtime.engine import StreamingEngine
+    log = dispatch_log(sess)
+    warmed = {}
+    warmup = sess.warmup
+
+    def counted_warmup(**kw):
+        warmup(**kw)
+        warmed.update(launches=read_launches(), dispatches=len(log))
+
+    sess.warmup = counted_warmup
+    sink = RealTimePacerSink() if paced else RawCollectorSink()
+    engine = StreamingEngine(sess, sink, qnorm_every=QNORM_EVERY,
+                             lookahead=lookahead, record=True,
+                             post_mix=post_mix)
+    produced, pairs, sizes = tap_dispatches(engine, events=paced)
+    for h in hits:
+        space = scene.instances[h["index"]].model.modal_force_vertex(
+            h["vertex"])
+        check(engine.hit(h["index"], space, kind=h["kind"],
+                         width_us=h["width_us"], amp=h["amp"]),
+              "the engine dropped a hit")
+    dragged = list(range(2, O, O // ENGINE_DRAGGED))[:ENGINE_DRAGGED]
+    spaces = np.random.default_rng(seed).standard_normal(
+        (2, ENGINE_DRAGGED, M))
+    first = ENGINE_COMPARED + 4
+    schedule = [(first, lambda: [engine.sustained_start(o, v)
+                                 for o, v in zip(dragged, spaces[0])])]
+    schedule += [(b, lambda b=b: engine.set_listener(
+        SCENE_LISTENER + 0.5 * np.array([np.sin(0.1 * b), 0.0, 0.0])))
+        for b in range(first + 6, ENGINE_BLOCKS, 20)]
+    schedule += [
+        (80, lambda: engine.set_ar_params(dragged[0], sigma=0.003, mu=0.1)),
+        (150, lambda: [engine.sustained_end(o) for o in dragged])]
+    schedule.sort(key=lambda e: e[0])
+
+    reset_launches()
+    t = time.perf_counter()
+    engine.start()
+    start_s = time.perf_counter() - t
+    if paced:
+        t0 = time.perf_counter()
+        while time.perf_counter() - t0 < PACED_SECONDS:
+            check(engine.healthy, f"{label}: engine died: {engine.error!r}")
+            while schedule and schedule[0][0] <= engine._blocks_done:
+                schedule.pop(0)[1]()
+            time.sleep(0.002)
+        wall = time.perf_counter() - t0
+        health = dict(missed=engine.health.missed,
+                      late_blocks=sink.late_blocks,
+                      paced_blocks=sink.total_blocks, seconds=wall)
+    else:
+        drive(engine, ENGINE_BLOCKS, schedule)
+        health = dict(missed=engine.health.missed)
+    engine.stop()
+    counts = read_launches()
+    run_log = list(log)
+    sess.warmup = warmup
+    torch.cuda.synchronize()
+    check(engine.error is None, f"{label}: engine error {engine.error!r}")
+    out = {"lookahead": lookahead, "blocks": len(produced),
+           "launches": counts, "health_before_stop": health,
+           "start_s_first": start_s, "stats": stats_dict(engine)}
+    if paced:
+        busy_ms = sum(a.elapsed_time(b) for a, b in pairs)
+        out.update(dispatch_event_ms_sum=busy_ms,
+                   idle_share_by_events=1.0 - busy_ms / (1e3 * wall))
+    else:
+        want = expected_launches(run_log)
+        check(counts == want, f"{label}: launches {counts} != {want} "
+              "reckoned from the dispatch log")
+        streamed = {k: counts[k] - warmed["launches"][k] for k in KERNELS}
+        reckoned, kinds = reckon_launches(
+            engine.recorded, sizes, sess.span_tables_for(1) is not None,
+            moved=True, fused=fused_rows(sess))
+        check(streamed == reckoned, f"{label}: the stream launched "
+              f"{streamed}, its events and block counts give {reckoned} "
+              f"({kinds})")
+        moves = sum(1 for _, ev in engine.recorded
+                    if type(ev).__name__ == "TransferEvent")
+        check(moves >= 3, f"{label}: {moves} listener moves")
+        audio = np.concatenate(produced)
+        check(bool(np.isfinite(audio).all())
+              and float(np.abs(audio).max()) > 0,
+              f"{label}: stream not finite or silent")
+        out.update(dispatches=kinds, launches_of_stream=streamed,
+                   listener_moves=moves)
+        out["audio"] = audio[:ENGINE_COMPARED * S]
+    print(f"spatial engine {label}:", json.dumps(
+        {k: v for k, v in out.items() if k != "audio"}), flush=True)
+    return out
+
+
+def offline_post_mix(scene, post_mix, hits, n_blocks) -> np.ndarray:
+    """A stream's first blocks offline: the same listener and hits on a
+    fresh session, stepped per block through a fresh post-mix."""
+    post_mix.on_listener(SCENE_LISTENER)
+    post_mix.reset()
+    sess = scene.session
+    for h in hits:
+        sess.hit(h["index"], scene.instances[h["index"]].model
+                 .modal_force_vertex(h["vertex"]), kind=h["kind"],
+                 width_us=h["width_us"], amp=h["amp"])
+    out = []
+    for _ in range(n_blocks):
+        sound, mix, _ = sess.step()
+        out.append(post_mix(sound, mix).cpu().numpy())
+    return np.concatenate(out)
+
+
+def phase_spatial_engine(scene, mono, seed) -> tuple:
+    """Phase 8e: (i) the binaural ITD Scene through DopplerPostMix at
+    lookahead 1 and 4, (ii) a single-listener Scene through HRTFPostMix on
+    the fused path, then (i) paced."""
+    import torch
+    from openpbso_tpu_torch.ops.doppler import DopplerPostMix
+    from openpbso_tpu_torch.ops.hrtf import HRTFPostMix
+    hits = scene_hits(np.random.default_rng(seed), scene.instances,
+                      future=False)[:ENGINE_HITS]
+
+    def doppler(sess):
+        pm = DopplerPostMix(scene.positions, num_listeners=2,
+                            gains=sess.gains)
+        pm.on_listener(SCENE_LISTENER)
+        return pm
+
+    def hrtf():
+        pm = HRTFPostMix(mono.positions, block_size=S)
+        pm.on_listener(SCENE_LISTENER)
+        return pm
+
+    out, launches = {}, dict.fromkeys(KERNELS, 0)
+    for lookahead in (1, 4):
+        sess = scene_setup(scene, [])
+        k = spatial_stream(f"(i) Doppler, lookahead {lookahead}", scene,
+                           sess, doppler(sess), lookahead, hits, seed + 1)
+        sess = scene_setup(scene, [])
+        ref = offline_post_mix(scene, doppler(sess), hits, ENGINE_COMPARED)
+        k["db_first_blocks_vs_offline"] = db_error(k.pop("audio"), ref)
+        check(k["db_first_blocks_vs_offline"] <= -90.0,
+              f"Doppler stream {k['db_first_blocks_vs_offline']} dB")
+        out[f"doppler_lookahead_{lookahead}"] = k
+        for name in KERNELS:
+            launches[name] += k["launches"][name]
+    for name in ("chunk_scan", "toeplitz_conv", "ar_noise"):
+        check(out["doppler_lookahead_1"]["launches"][name] > 0,
+              f"the Doppler stream never launched {name}")
+
+    sess = scene_setup(mono, [])
+    k = spatial_stream("(ii) HRTF, fused per block", mono, sess, hrtf(), 1,
+                       hits, seed + 1)
+    scene_setup(mono, [])
+    ref = offline_post_mix(mono, hrtf(), hits, ENGINE_COMPARED)
+    k["db_first_blocks_vs_offline"] = db_error(k.pop("audio"), ref)
+    check(k["db_first_blocks_vs_offline"] <= -90.0,
+          f"HRTF stream {k['db_first_blocks_vs_offline']} dB")
+    check(k["launches"]["fused_block"] > 0,
+          "the HRTF stream never launched fused_block")
+    for name in KERNELS:
+        launches[name] += k["launches"][name]
+    # process_span against per-block processing on the same sound
+    sess = scene_setup(mono, scene_hits(np.random.default_rng(seed + 2),
+                                        mono.instances))
+    sound = [sess.step()[0] for _ in range(SPAN_DISPATCH)]
+    blocks, span = hrtf(), hrtf()
+    per_block = np.concatenate([blocks(s, None).cpu().numpy()
+                                for s in sound])
+    spanned = span.process_span(torch.cat(sound, dim=-1)).cpu().numpy()
+    k["db_process_span_vs_per_block"] = db_error(spanned, per_block)
+    check(k["db_process_span_vs_per_block"] <= -90.0,
+          f"HRTF process_span {k['db_process_span_vs_per_block']} dB")
+    out["hrtf"] = k
+
+    print("spatial engine, against the offline renders:", json.dumps({
+        name: {key: k[key] for key in ("db_first_blocks_vs_offline",
+                                       "db_process_span_vs_per_block")
+               if key in k} for name, k in out.items()}), flush=True)
+    sess = scene_setup(scene, [])
+    out["doppler_paced"] = spatial_stream(
+        "(i) Doppler, paced", scene, sess, doppler(sess), 1, hits,
+        seed + 1, paced=True)
+    return out, launches
+
+
+def phase_per_client(instances, seed) -> tuple:
+    """Phase 8f: per-client serving, a listener_offsets Scene of
+    PER_CLIENT listeners (its own mixdown), then the same Scene with
+    [L, 3] world rows through DopplerPostMix(num_listeners=L); each per
+    block and by span."""
+    import torch
+    from openpbso_tpu_torch.ops.doppler import DopplerPostMix
+    nl = PER_CLIENT
+    ang = 2 * np.pi * np.arange(nl) / nl
+    offsets = 0.6 * np.stack([np.cos(ang), np.sin(ang), np.zeros(nl)], 1)
+    scene = build_scene(instances, listener_offsets=offsets)
+    hits = scene_hits(np.random.default_rng(seed), instances, future=False)
+    n = PER_CLIENT_BLOCKS
+    reset_launches()
+    out = {}
+    scene_setup(scene, hits)
+    per_block = scene.render(n)
+    scene_setup(scene, hits)
+    span = scene.render_multi(n, blocks_per_dispatch=n)
+    check(per_block.shape == (n * S, nl) and float(np.abs(per_block).max())
+          > 0, f"per-client render {per_block.shape}")
+    out["offsets_db_span_vs_per_block"] = db_error(span, per_block)
+
+    world = SCENE_LISTENER + offsets * 5.0                     # [L, 3]
+
+    def clients():
+        sess = as_built(scene)
+        sess.set_listener(world)
+        apply_hits(scene, hits)
+        pm = DopplerPostMix(scene.positions, num_listeners=nl,
+                            gains=sess.gains)
+        pm.on_listener(world)
+        pm.reset()
+        return sess, pm
+    sess, pm = clients()
+    check(tuple(sess.state.transfer.shape) == (nl, O, M),
+          f"per-client rows {tuple(sess.state.transfer.shape)}")
+    blocks = []
+    for _ in range(n):
+        sound, mix, _ = sess.step()
+        blocks.append(pm(sound, mix).cpu().numpy())
+    blocks = np.concatenate(blocks)
+    sess, pm = clients()
+    spanned = pm.process_span(sess._step_span_sound(n)).cpu().numpy()
+    check(blocks.shape == (n * S, nl) and float(np.abs(blocks).max()) > 0,
+          f"per-client Doppler mix {blocks.shape}")
+    out["world_rows_doppler_db_span_vs_per_block"] = db_error(spanned,
+                                                              blocks)
+    counts = read_launches()
+    check(counts["chunk_scan"] == 2 and counts["toeplitz_conv"] == 2,
+          f"per-client spans launched {counts}")
+    for key in ("offsets_db_span_vs_per_block",
+                "world_rows_doppler_db_span_vs_per_block"):
+        check(out[key] <= -90.0, f"per-client {key} {out[key]} dB")
+    out["launches"] = counts
+    del scene
+    torch.cuda.empty_cache()
+    print("per-client serving:", json.dumps(out), flush=True)
+    return out, counts
+
+
+def phase_spatial(dirs, seed) -> dict:
+    """Phase 8; returns its launches per kernel."""
+    import torch
+    instances, compressed = scene_instances(dirs)
+    scene = build_scene(instances, compressed, binaural=True, itd=True,
+                        smooth_transfer=True)
+    plain = build_scene(instances, binaural=True, smooth_transfer=True)
+    hits = scene_hits(np.random.default_rng(seed), instances)
+    launches = dict.fromkeys(KERNELS, 0)
+    timings = {"compressed": phase_compressed(scene, plain)}
+    _, counts = phase_replicated(plain, instances, hits)
+    for name in KERNELS:
+        launches[name] += counts[name]
+    timings["span"], counts = phase_binaural_span(scene, hits)
+    for name in KERNELS:
+        launches[name] += counts[name]
+    held = build_scene(instances, binaural=True)
+    phase_spatial_moving(plain, held, hits)
+    del plain, held
+    torch.cuda.empty_cache()
+    mono = build_scene(instances, smooth_transfer=True)
+    # the one session a Scene did not configure: see without_span_tables
+    without_span_tables(mono)
+    engines, counts = phase_spatial_engine(scene, mono, seed + 1)
+    for name in KERNELS:
+        launches[name] += counts[name]
+    del mono
+    torch.cuda.empty_cache()
+    _, counts = phase_per_client(instances, seed + 4)
+    for name in KERNELS:
+        launches[name] += counts[name]
+    check(launches["fused_block"] > 0 and launches["chunk_scan"] > 0
+          and launches["toeplitz_conv"] > 0, f"phase 8 launched {launches}")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip()
+    paced = engines["doppler_paced"]
+    print("spatial timings:", json.dumps({
+        "card": smi,
+        "binaural_per_block_full_ms_median":
+            timings["span"]["per_block_full_ms_median"],
+        "binaural_busy_span_ms": timings["span"]["busy_span_ms"],
+        "binaural_span_rtf": timings["span"]["span_rtf"],
+        **{k: timings["compressed"][k] for k in (
+            "set_listener_itd_ms_median", "set_listener_lookups_ms_median",
+            "set_listener_no_itd_ms_median")},
+        "compressed_transfer_ms":
+            timings["compressed"]["compressed_transfer_ms"],
+        "doppler_paced": {"missed": paced["health_before_stop"]["missed"],
+                          "late_blocks":
+                              paced["health_before_stop"]["late_blocks"],
+                          "p99_ms": paced["stats"]["p99_ms"],
+                          "idle_share_by_events":
+                              paced["idle_share_by_events"]},
+        "launches": launches}), flush=True)
+    return launches
+
+
 def kernel_bounds(hetero_modes_padded, shared_modes_padded, n_chunks,
                   chunk):
     """Each kernel's bound (bench/roofline.py) at the shape its JSON entry
@@ -1672,6 +2566,104 @@ def kernel_bounds(hetero_modes_padded, shared_modes_padded, n_chunks,
     return out
 
 
+@contextlib.contextmanager
+def phase_clock(name, seconds):
+    t = time.perf_counter()
+    yield
+    seconds[name] = time.perf_counter() - t
+    print(f"phase {name}: {seconds[name]} s", flush=True)
+
+
+def run_phases(args, model_pool, model_futures) -> int:
+    """Phases 3-8, the bounds and the closing lines."""
+    import torch
+    seconds = {}
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(args.seed)
+    t = time.perf_counter()
+    modes = hetero_modes(O, M)
+    hetero = hetero_bank(O, M, S, None, modes)   # the builders' default
+    check(hetero.device.type == "cuda",
+          f"a bank built without device= is on {hetero.device}")
+    print(f"hetero bank {O}x{hetero.num_modes}: "
+          f"{time.perf_counter() - t} s", flush=True)
+
+    with phase_clock("3", seconds):
+        prod = kernel_case("hetero", hetero, S, CHUNK, rng, timed=True)
+        shared = shared_bank(O, M, S, dev)
+        kernel_case("shared", shared, S, CHUNK, rng, timed=True)
+        kernel_case("ragged", hetero_bank(5, 40, 256, dev), 256, CHUNK, rng)
+        kernel_case("chunk>S", hetero_bank(3, 24, 32, dev), 32, CHUNK, rng)
+
+    with phase_clock("4", seconds):
+        per_block = phase_session(session_scene(hetero, rng))
+
+    from openpbso_tpu_torch.ops.coeffs import lambda_from_modes
+    mat, omega_squared = shared_modes(M)
+    shared_lam = lambda_from_modes(mat.density, omega_squared, mat.alpha,
+                                   mat.beta)[0]
+    with phase_clock("5", seconds):
+        span_cases = {}
+        for i, (name, n_blocks) in enumerate(SPAN_CASES):
+            bank, lam = ((shared, shared_lam) if name == "shared"
+                         else (hetero, modes[0]))
+            span_cases[name] = span_kernel_case(name, bank, lam, n_blocks,
+                                                args.seed + i)
+        span_launches = phase_span_session(hetero, modes[0], per_block)
+        phase_toeplitz_shapes(args.seed, dev)
+
+    with phase_clock("6", seconds):
+        ar = phase_ar_kernels(args.seed, dev)
+        phase_sustained_span(shared, shared_lam, args.seed)
+        drag_launches = phase_sustained_session(hetero, modes[0], per_block)
+
+    with phase_clock("8 (models written)", seconds):
+        model_dirs = [f.result() for f in model_futures]
+        model_pool.shutdown(wait=True)   # no worker alive in the live phases
+    with phase_clock("7", seconds):
+        live_launches = phase_live(per_block, modes[0], rng)
+    with phase_clock("8", seconds):
+        spatial_launches = phase_spatial(model_dirs, args.seed)
+
+    head = span_cases[SPAN_CASES[0][0]]
+    bounds = kernel_bounds(hetero.num_modes, shared.num_modes,
+                           head["n_chunks"], head["chunk"])
+    # launches: each kernel's count on its render's path (phases 4, 5b,
+    # 6c) plus the engine streams' (7d) and the spatial path's (8b, 8c,
+    # 8e, 8f), each read around its own run
+    kernels = [dict(name="fused_block", launches=per_block["launches"],
+                    max_abs_err=prod["max_abs_err"], ms=prod["kernel_ms"],
+                    device_ms=prod["device_ms"], plain_ms=prod["plain_ms"],
+                    library_ms=None)]
+    kernels += [dict(name=k, launches=span_launches[k],
+                     max_abs_err=head[k]["max_abs_err"], ms=head[k]["ms"],
+                     device_ms=head[k]["device_ms"],
+                     plain_ms=head[k]["plain_ms"],
+                     library_ms=head[k].get("library_ms"))
+                for k in ("chunk_scan", "toeplitz_conv")]
+    kernels += [dict(name=k, launches=drag_launches[path][k],
+                     max_abs_err=ar[k]["max_abs_err"], ms=ar[k]["ms"],
+                     device_ms=ar[k]["device_ms"],
+                     plain_ms=ar[k]["plain_ms"], library_ms=None)
+                for k, path in (("ar_noise", "span"), ("ar_block", "block"))]
+    for k in kernels:
+        k["launches"] += (live_launches[k["name"]]
+                          + spatial_launches[k["name"]])
+        k.update(route="cuda", source=KERNELS[k["name"]][0],
+                 replaces=KERNELS[k["name"]][1],
+                 bound_ms=bounds[k["name"]]["bound_ms"],
+                 bound_by=bounds[k["name"]]["bound_by"])
+    print("phase seconds:", json.dumps(seconds), flush=True)
+    print("device time: " + ", ".join(
+        f"{k['name']} {k['device_ms']} ms (events {k['ms']} ms)"
+        for k in kernels), flush=True)
+    print(json.dumps({"kernels": kernels}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -1698,77 +2690,15 @@ def main() -> int:
     if _build.build_log:
         print(_build.build_log.strip(), flush=True)
 
-    dev = torch.device("cuda")
-    rng = np.random.default_rng(args.seed)
-    t = time.perf_counter()
-    modes = hetero_modes(O, M)
-    hetero = hetero_bank(O, M, S, None, modes)   # the builders' default
-    check(hetero.device.type == "cuda",
-          f"a bank built without device= is on {hetero.device}")
-    print(f"hetero bank {O}x{hetero.num_modes}: "
-          f"{time.perf_counter() - t} s", flush=True)
-
-    prod = kernel_case("hetero", hetero, S, CHUNK, rng, timed=True)
-    shared = shared_bank(O, M, S, dev)
-    kernel_case("shared", shared, S, CHUNK, rng, timed=True)
-    kernel_case("ragged", hetero_bank(5, 40, 256, dev), 256, CHUNK, rng)
-    kernel_case("chunk>S", hetero_bank(3, 24, 32, dev), 32, CHUNK, rng)
-
-    per_block = phase_session(session_scene(hetero, rng))
-
-    from openpbso_tpu_torch.ops.coeffs import lambda_from_modes
-    mat, omega_squared = shared_modes(M)
-    shared_lam = lambda_from_modes(mat.density, omega_squared, mat.alpha,
-                                   mat.beta)[0]
-    span_cases = {}
-    for i, (name, n_blocks) in enumerate(SPAN_CASES):
-        bank, lam = ((shared, shared_lam) if name == "shared"
-                     else (hetero, modes[0]))
-        span_cases[name] = span_kernel_case(name, bank, lam, n_blocks,
-                                            args.seed + i)
-    span_launches = phase_span_session(hetero, modes[0], per_block)
-    phase_toeplitz_shapes(args.seed, dev)
-
-    ar = phase_ar_kernels(args.seed, dev)
-    phase_sustained_span(shared, shared_lam, args.seed)
-    drag_launches = phase_sustained_session(hetero, modes[0], per_block)
-
-    live_launches = phase_live(per_block, modes[0], rng)
-
-    head = span_cases[SPAN_CASES[0][0]]
-    bounds = kernel_bounds(hetero.num_modes, shared.num_modes,
-                           head["n_chunks"], head["chunk"])
-    # launches: each kernel's count on its render's path (phases 4, 5b,
-    # 6c) plus the engine streams' (7d), each read around its own run
-    kernels = [dict(name="fused_block", launches=per_block["launches"],
-                    max_abs_err=prod["max_abs_err"], ms=prod["kernel_ms"],
-                    device_ms=prod["device_ms"], plain_ms=prod["plain_ms"],
-                    library_ms=None)]
-    kernels += [dict(name=k, launches=span_launches[k],
-                     max_abs_err=head[k]["max_abs_err"], ms=head[k]["ms"],
-                     device_ms=head[k]["device_ms"],
-                     plain_ms=head[k]["plain_ms"],
-                     library_ms=head[k].get("library_ms"))
-                for k in ("chunk_scan", "toeplitz_conv")]
-    kernels += [dict(name=k, launches=drag_launches[path][k],
-                     max_abs_err=ar[k]["max_abs_err"], ms=ar[k]["ms"],
-                     device_ms=ar[k]["device_ms"],
-                     plain_ms=ar[k]["plain_ms"], library_ms=None)
-                for k, path in (("ar_noise", "span"), ("ar_block", "block"))]
-    for k in kernels:
-        k["launches"] += live_launches[k["name"]]
-        k.update(route="cuda", source=KERNELS[k["name"]][0],
-                 replaces=KERNELS[k["name"]][1],
-                 bound_ms=bounds[k["name"]]["bound_ms"],
-                 bound_by=bounds[k["name"]]["bound_by"])
-    print("device time: " + ", ".join(
-        f"{k['name']} {k['device_ms']} ms (events {k['ms']} ms)"
-        for k in kernels), flush=True)
-    print(json.dumps({"kernels": kernels}), flush=True)
-    print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}), flush=True)
-    return 0
+    # phase 8's model directories are written by worker processes while
+    # phases 3-6 run, and waited for before the live phases
+    models_root = tempfile.mkdtemp(prefix="chip_smoke_models_")
+    pool, futures = start_scene_models(models_root, args.seed)
+    try:
+        return run_phases(args, pool, futures)
+    finally:
+        pool.shutdown(wait=True, cancel_futures=True)
+        shutil.rmtree(models_root, ignore_errors=True)
 
 
 if __name__ == "__main__":

@@ -52,16 +52,13 @@ def state_from_numpy(src, device=None) -> SolverState:
 
 
 def ffat_from_numpy(src, device=None) -> FFATMaps:
+    """FFAT maps, the compressed second texture ``psi_c`` with them when
+    the source carries one."""
     device = resolve_device(device)
     g = src.geom
-    if getattr(g, "psi_c", None) is not None:
-        raise NotImplementedError(
-            "the compressed Psi texture is not ported yet (ROADMAP.md "
-            "Queue 1, \"Scene: multi-listener rows, complex transfers, "
-            "the compressed texture\")")
-    geom = DeviceFFAT(**{name: _t(getattr(g, name), device) for name in (
-        "psi", "k", "center", "bbox_low", "bbox_top", "low_corners",
-        "n_elements", "strides", "mode_mask")})
+    names = ("psi", "k", "center", "bbox_low", "bbox_top", "low_corners",
+             "n_elements", "strides", "mode_mask", "psi_c")
+    geom = DeviceFFAT(**{n: _t(getattr(g, n, None), device) for n in names})
     return FFATMaps(geom=geom, cell_size=_t(src.cell_size, device))
 
 

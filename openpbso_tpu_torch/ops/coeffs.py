@@ -117,7 +117,12 @@ def _power_table(lam: np.ndarray, powers) -> np.ndarray:
     """[..., len(powers)] complex128 table of lam^d in exact-angle polar
     form (d*log|lam|, d*arg lam), so the angle does not accumulate rounding
     across hundreds of powers. ``powers``: int (arange(powers+1)) or an
-    explicit exponent array."""
+    explicit exponent array. Equal rows of a 2-D ``lam`` (a scene's
+    instances of one model) are computed once: the same values, bitwise."""
+    if np.ndim(lam) == 2 and lam.shape[0] > 1:
+        rows, inverse = np.unique(lam, axis=0, return_inverse=True)
+        if rows.shape[0] < lam.shape[0]:
+            return _power_table(rows, powers)[inverse.reshape(-1)]
     mag = np.abs(lam)
     ang = np.angle(lam)
     if np.isscalar(powers) or np.ndim(powers) == 0:

@@ -1,5 +1,6 @@
 """Block solver, carried state, the host session and the streaming engine of
-the port."""
+the port (the post-mixes a stream may carry are ``ops.DopplerPostMix`` and
+``ops.HRTFPostMix``)."""
 from .audio import (RawCollectorSink, RealTimePacerSink, SoundDeviceSink,
                     WavFileSink)
 from .checkpoint import (load_session, load_state, save_session, save_state,
@@ -7,5 +8,6 @@ from .checkpoint import (load_session, load_state, save_session, save_state,
 from .engine import StreamingEngine
 from .profiling import BlockProfiler
 from .session import ModalSession
-from .solver import SolverConfig, default_gains, step_block, step_multi
+from .solver import (SolverConfig, default_gains, step_block, step_multi,
+                     step_multi_transfers, step_multi_transfers_sound)
 from .state import SolverState, make_solver_state

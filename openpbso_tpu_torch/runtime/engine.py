@@ -210,8 +210,9 @@ class StreamingEngine:
         span dispatches), ``.on_listener(pos)`` (called when a listener
         event applies, so direction-dependent filters track the move) and
         ``.reset()`` (called after warmup so the stream starts with clean
-        filter state). The HRTF and Doppler stages of the JAX package are
-        not part of this package yet."""
+        filter state). ``ops/hrtf.py::HRTFPostMix`` and
+        ``ops/doppler.py::DopplerPostMix`` have all three: binaural HRTF
+        and live Doppler streams keep their span dispatches."""
         self.session = session
         self.sink = sink
         self.lookahead = max(1, int(lookahead))

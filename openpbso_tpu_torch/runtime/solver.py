@@ -68,6 +68,18 @@ def _mixdown_span(sound: torch.Tensor, gains: torch.Tensor) -> torch.Tensor:
     return _mixdown(sound, gains)
 
 
+def block_backend(state: SolverState, backend: str, bank: ModalBank) -> str:
+    """The backend that integrates a (non-ramped) block of ``state``:
+    ``backend`` resolved for the bank, except that multi-listener and
+    complex rows leave the fused kernel, which supports neither, for the
+    blocked form, which handles both."""
+    name = resolve_backend_name(backend, bank)
+    if name == "fused" and (state.transfer.dim() == 3
+                            or state.transfer_im is not None):
+        return "blocked"
+    return name
+
+
 def _step_block_impl(
     state: SolverState,
     bank: ModalBank,
@@ -103,13 +115,8 @@ def _step_block_impl(
         sus = state.sustained
         time_profile, space = time_imp, space_imp
 
-    if state.transfer.dim() == 3 or state.transfer_im is not None:
-        # multi-listener and complex rows: the fused kernel supports
-        # neither; the blocked form handles both
-        if resolve_backend_name(backend, bank) == "fused":
-            backend = "blocked"
     if transfer_prev is None:
-        integrate = get_backend(backend, bank)
+        integrate = get_backend(block_backend(state, backend, bank), bank)
         z_re, z_im, sound, qnorm = integrate(
             state.z_re, state.z_im, bank, space, time_profile,
             state.transfer, compute_qnorm, transfer_im=state.transfer_im)

@@ -102,6 +102,23 @@ def test_hetero_bank_bitwise():
                                    device="cpu").shared_tables
 
 
+@pytest.mark.parametrize("powers", [32, np.array([0, 3, 512])])
+def test_repeated_rows_bitwise(powers):
+    """A scene's instances of one model repeat their rows: the port builds
+    each distinct row's table once, and the result is the JAX package's
+    table of every row, bitwise (padded zero modes included)."""
+    lam, b, v = _hetero_lam(jc, 3, 40)
+    rows = [0, 1, 0, 2, 1, 0]
+    lam, b, v = (np.pad(x[rows], ((0, 0), (0, 8))) for x in (lam, b, v))
+    np.testing.assert_array_equal(tc._power_table(lam, powers),
+                                  jc._power_table(lam, powers))
+    jb = jc.build_modal_bank(lam, b, v, block_size=32, shared=False,
+                             dtype=jnp.float32)
+    tb = tc.build_modal_bank(lam, b, v, block_size=32, shared=False,
+                             device="cpu")
+    _assert_bank_equal(tb, jb)
+
+
 def test_chunk_tables_are_cached_exact_slices():
     lam, b, v = _hetero_lam(tc, 2, 24)
     bank = tc.build_modal_bank(lam, b, v, block_size=64, device="cpu")

@@ -4,6 +4,9 @@ raises (openpbso_tpu_torch.device.resolve_device) instead of building on
 the CPU, where a session would silently run the kernels' plain twins; with
 ``device="cpu"`` it builds there. Whether a GPU is present is decided
 inside each test."""
+import functools
+import tempfile
+
 import numpy as np
 import pytest
 import torch
@@ -14,6 +17,7 @@ from openpbso_tpu_torch.ops.coeffs import (bank_from_material,
                                            build_modal_bank,
                                            lambda_from_modes)
 from openpbso_tpu_torch.ops.ffat import build_ffat, build_ffat_hetero
+from openpbso_tpu_torch.ops.hrtf import fir_to_freq
 from openpbso_tpu_torch.ops.forces import (make_force_slots,
                                            make_sustained_state)
 from openpbso_tpu_torch.ops.span import build_span_tables
@@ -60,6 +64,32 @@ def _cpu_bank():
     return build_modal_bank(*_lam(), block_size=8, device="cpu")
 
 
+@functools.lru_cache(maxsize=None)
+def _model():
+    from openpbso_tpu_torch.io.meta import resolve_model_dir
+    from openpbso_tpu_torch.models.modal_model import load_model
+    from openpbso_tpu_torch.utils.synth import synth_model_dir
+    root = tempfile.mkdtemp(prefix="device_model_")
+    synth_model_dir(root, "m", num_modes=M, subdivisions=1, ffat_n=4)
+    return load_model(resolve_model_dir(root, "m"))
+
+
+def _scene(**kw):
+    from openpbso_tpu_torch.models.scene import Scene, SceneInstance
+    return Scene([SceneInstance(_model(), np.zeros(3))], block_size=8,
+                 binaural=True, **kw).session.state
+
+
+def _post_mix(kind, **kw):
+    from openpbso_tpu_torch.ops.doppler import DopplerPostMix
+    from openpbso_tpu_torch.ops.hrtf import HRTFPostMix
+    if kind == "doppler":
+        pm = DopplerPostMix(np.zeros((2, 3)), num_listeners=2, **kw)
+        return pm._hist, pm.gains
+    pm = HRTFPostMix(np.ones((2, 3)), block_size=8, **kw)
+    return pm._carry, pm._hf
+
+
 BUILDERS = {   # name -> builder(**kw): every builder that takes ``device``
     "build_modal_bank": lambda **kw: build_modal_bank(*_lam(), block_size=8,
                                                       **kw),
@@ -85,6 +115,11 @@ BUILDERS = {   # name -> builder(**kw): every builder that takes ``device``
     "convert.span_tables_from_numpy": lambda **kw:
         convert.span_tables_from_numpy(
             build_span_tables(_lam()[0], 64, device="cpu"), **kw),
+    "Scene": _scene,
+    "DopplerPostMix": lambda **kw: _post_mix("doppler", **kw),
+    "HRTFPostMix": lambda **kw: _post_mix("hrtf", **kw),
+    "hrtf.fir_to_freq": lambda **kw: fir_to_freq(np.zeros((2, 2, 4)), 8,
+                                                 **kw),
 }
 
 
@@ -92,6 +127,9 @@ def _tensors(x):
     """Every tensor reachable through a builder's result."""
     if isinstance(x, torch.Tensor):
         yield x
+    elif isinstance(x, tuple):
+        for v in x:
+            yield from _tensors(v)
     elif hasattr(x, "__dataclass_fields__"):
         for name in x.__dataclass_fields__:
             yield from _tensors(getattr(x, name))

@@ -264,9 +264,14 @@ def test_lookahead1_span_live_path(dberr):
     spans = []
     inner = sess._step_span
     sess._step_span = lambda n, **kw: (spans.append(n), inner(n, **kw))[1]
+    # start() warms up before it spawns the synthesis thread: count the
+    # warmup's spans as it returns, since the thread may dispatch before
+    # start() itself returns
+    warmup, warmed = sess.warmup, []
+    sess.warmup = lambda **kw: (warmup(**kw), warmed.append(len(spans)))[0]
     engine.hit(0, np.ones(16), kind="gaussian", width_us=500.0)
     engine.start()
-    warm = len(spans)
+    warm, = warmed
     assert _wait(lambda: len(produced) >= 20)
     engine.stop()
     assert engine.error is None

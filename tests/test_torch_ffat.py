@@ -56,9 +56,12 @@ def _listeners(shape):
 def test_build_ffat_matches_jax(hetero):
     jmaps, tmaps = _build(hetero)
     for f in dataclasses.fields(tf.DeviceFFAT):
+        ref = getattr(jmaps.geom, f.name)
+        if ref is None:      # no compressed texture asked for
+            assert getattr(tmaps.geom, f.name) is None, f.name
+            continue
         np.testing.assert_array_equal(getattr(tmaps.geom, f.name).numpy(),
-                                      np.asarray(getattr(jmaps.geom, f.name)),
-                                      err_msg=f.name)
+                                      np.asarray(ref), err_msg=f.name)
     np.testing.assert_array_equal(tmaps.cell_size.numpy(),
                                   np.asarray(jmaps.cell_size))
     assert tmaps.geom.shared == (not hetero)
@@ -77,8 +80,39 @@ def test_compute_transfer_matches_jax(hetero, listener, dberr):
     assert dberr(got.numpy(), ref) <= -120
 
 
+def test_hetero_maps_shared_between_objects_bitwise():
+    """Objects that share one map dict (a scene's instances of one model)
+    are packed once and repeated on the device: the JAX package's
+    per-object arrays, bitwise, with and without the compressed texture."""
+    a, b = _maps(1), _maps(2, center=(0.02, 0.0, -0.01))
+    per_obj = [a, b, a, a, b]
+    for comp in (None, "auto"):
+        jmaps = jf.build_ffat_hetero(per_obj, M, dtype=jnp.float32,
+                                     compressed_maps=comp)
+        tmaps = tf.build_ffat_hetero(per_obj, M, device="cpu",
+                                     compressed_maps=comp)
+        for f in dataclasses.fields(tf.DeviceFFAT):
+            ref = getattr(jmaps.geom, f.name)
+            got = getattr(tmaps.geom, f.name)
+            if ref is None:
+                assert got is None, f.name
+                continue
+            np.testing.assert_array_equal(got.numpy(), np.asarray(ref),
+                                          err_msg=f.name)
+        np.testing.assert_array_equal(tmaps.cell_size.numpy(),
+                                      np.asarray(jmaps.cell_size))
+
+
 def test_compressed_texture_is_not_carried():
+    """convert.ffat_from_numpy carries the compressed second texture
+    bitwise (tests/test_torch_compressed.py covers its lookups)."""
     maps = _maps(0)
-    jmaps = jf.build_ffat(maps, M, dtype=jnp.float32, compressed_maps=maps)
-    with pytest.raises(NotImplementedError, match="compressed"):
-        ffat_from_numpy(jax.tree.map(np.asarray, jmaps), device="cpu")
+    jmaps = jf.build_ffat(maps, M, dtype=jnp.float32,
+                          compressed_maps="auto")
+    tmaps = ffat_from_numpy(jax.tree.map(np.asarray, jmaps), device="cpu")
+    np.testing.assert_array_equal(tmaps.geom.psi_c.numpy(),
+                                  np.asarray(jmaps.geom.psi_c))
+    assert not torch.equal(tmaps.geom.psi_c, tmaps.geom.psi)
+    plain = ffat_from_numpy(jax.tree.map(
+        np.asarray, jf.build_ffat(maps, M, dtype=jnp.float32)), device="cpu")
+    assert plain.geom.psi_c is None

@@ -540,3 +540,128 @@ def test_warmup_leaves_no_trace_on_the_card(cuda):
     assert np.array_equal(sessions[0].render(6), sessions[1].render(6))
     assert np.array_equal(sessions[0].render_multi(8, 4),
                           sessions[1].render_multi(8, 4))
+
+
+# ------------------------------------------------------- the spatial path
+
+
+def _scene_models(tmp_path, n_models=2, modes=24):
+    from openpbso_tpu_torch.io.meta import resolve_model_dir
+    from openpbso_tpu_torch.models import load_model
+    from openpbso_tpu_torch.utils.synth import synth_model_dir
+    return [load_model(resolve_model_dir(synth_model_dir(
+        str(tmp_path / f"m{i}"), "m", num_modes=modes + 8 * i, seed=i + 1),
+        "m")) for i in range(n_models)]
+
+
+def _scene(models, device, n=6, **kw):
+    from openpbso_tpu_torch.models import Scene, SceneInstance
+    inst = [SceneInstance(models[i % len(models)],
+                          np.array([0.5 * i, 0.2 * (i % 3), 0.0]))
+            for i in range(n)]
+    scene = Scene(inst, block_size=256, device=device, **kw)
+    scene.set_listener(np.array([0.4, 1.1, 0.6]))
+    rng = np.random.default_rng(8)
+    for i in range(n):
+        scene.hit(i, int(rng.integers(0, models[0].num_vertices)),
+                  kind="gaussian", width_us=700.0, when=256 * (i % 3))
+    return scene
+
+
+def test_span_kernels_on_binaural_itd_rows(cuda, tmp_path, monkeypatch):
+    """A binaural ITD Scene's spans put L = 2 complex listener rows
+    through both span kernels: on the render's own inputs chunk_scan is
+    bitwise its twin and toeplitz_conv within -110 dB and repeatable; the
+    render matches the per-block one (blocked form, no kernel)."""
+    from openpbso_tpu_torch.ops import span as span_mod
+    models = _scene_models(tmp_path)
+    captured = {}
+
+    def capture(fn, label):
+        def call(*args):
+            captured.setdefault(label, [a.clone() if isinstance(
+                a, torch.Tensor) else a for a in args])
+            return fn(*args)
+        return call
+    monkeypatch.setattr(span_mod, "chunk_scan",
+                        capture(span_mod.chunk_scan, "scan"))
+    monkeypatch.setattr(span_mod, "toeplitz_conv",
+                        capture(span_mod.toeplitz_conv, "conv"))
+    kw = dict(binaural=True, itd=True)
+    before = (k1.LAUNCHES, k2.LAUNCHES, fi.LAUNCHES)
+    span = _scene(models, cuda, **kw).render_multi(9, blocks_per_dispatch=3)
+    # dispatches at blocks 0, 3 and 6; the last slot (hit at block 2)
+    # rings past block 3, so two have live forces
+    assert (k1.LAUNCHES - before[0], k2.LAUNCHES - before[1],
+            fi.LAUNCHES - before[2]) == (3, 2, 0)
+    per_block = _scene(models, cuda, **kw)
+    assert per_block.session.state.transfer_im.shape == (2, 6, 128)
+    assert fi.LAUNCHES == before[2]
+    ref = per_block.render(9)
+    assert span.shape == (9 * 256, 2) and np.abs(ref).max() > 0
+    assert _db(span, ref) <= -90
+    g, f = captured["conv"]
+    assert g.shape[1] == 2
+    _assert_kernel_matches_twin([k2.toeplitz_conv(g, f)],
+                                [k2.toeplitz_conv(g, f)],
+                                [k2.toeplitz_conv_reference(g, f)], db=-110)
+    args = captured["scan"]
+    for a, b in zip(k1.chunk_scan(*args), k1.chunk_scan_reference(*args)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("hetero", [False, True])
+def test_compressed_transfer_matches_its_cpu_run(cuda, hetero):
+    """Both Psi textures looked up on the card agree with the same lookups
+    on CPU tensors (<= -100 dB), and the two textures differ. [L, O, 3]
+    listener rows in one call (the session's set_listener) give each
+    listener's row bitwise equal to a call on that row alone."""
+    from openpbso_tpu_torch.ops.ffat import (build_ffat, build_ffat_hetero,
+                                             compute_transfer)
+    from openpbso_tpu_torch.ops.ffat_fit import compress_map
+    from openpbso_tpu_torch.utils.synth import synth_fatcube
+    maps = [{i: synth_fatcube(i, 300.0 * (i + 1), n=6, seed=s)
+             for i in range(40)} for s in (0, 1)]
+    comp = [{i: compress_map(m) for i, m in mp.items()} for mp in maps]
+    rng = np.random.default_rng(9)
+    p = rng.uniform(-1.0, 1.0, (5, 3)) * 2.0
+    p[:, 2] += 1.0
+    rows = []
+    for device in ("cpu", cuda):
+        if hetero:
+            ffat = build_ffat_hetero([maps[i % 2] for i in range(5)], 128,
+                                     device=device, compressed_maps=[
+                                         comp[i % 2] for i in range(5)])
+        else:
+            ffat = build_ffat(maps[0], 128, device=device,
+                              compressed_maps=comp[0])
+        pos = torch.as_tensor(p, dtype=torch.float32, device=device)
+        rows.append([compute_transfer(ffat, pos, compressed=c).cpu()
+                     for c in (False, True)])
+    host, card = rows
+    for got, ref in zip(card, host):
+        assert torch.isfinite(got).all() and _db(got, ref) <= -100
+    assert not torch.equal(card[0], card[1])
+    listeners = torch.stack([pos, pos.flip(0), 0.5 * pos])
+    for c in (False, True):
+        both = compute_transfer(ffat, listeners, compressed=c)
+        assert both.shape == (3, 5, 128)
+        for li in range(3):
+            assert torch.equal(both[li], compute_transfer(
+                ffat, listeners[li], compressed=c))
+
+
+def test_fused_block_on_the_replicated_rows(cuda, tmp_path):
+    """The replicated binaural layout (2 single-listener rows per object)
+    steps through fused_block and matches the shared-state rows, which
+    take the blocked form, per channel (<= -90 dB)."""
+    models = _scene_models(tmp_path)
+    before = fi.LAUNCHES
+    shared = _scene(models, cuda, binaural=True).render(8)
+    assert fi.LAUNCHES == before
+    rep = _scene(models, cuda, binaural=True, shared_state=False)
+    assert rep.session.state.transfer.shape == (12, 128)
+    got = rep.render(8)
+    assert fi.LAUNCHES > before
+    for ch in range(2):
+        assert _db(got[:, ch], shared[:, ch]) <= -90

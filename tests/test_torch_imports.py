@@ -33,8 +33,10 @@ import os, tempfile, time
 from openpbso_tpu_torch.runtime import (RawCollectorSink, StreamingEngine,
                                         load_session, save_session)
 from openpbso_tpu_torch.runtime.profiling import device_trace
-for required in ("audio", "checkpoint", "engine", "profiling"):
-    assert "openpbso_tpu_torch.runtime." + required in names, required
+for required in ("runtime.audio", "runtime.checkpoint", "runtime.engine",
+                 "runtime.profiling", "models.scene", "ops.doppler",
+                 "ops.hrtf", "ops.ffat_fit"):
+    assert "openpbso_tpu_torch." + required in names, required
 engine = StreamingEngine(sess, RawCollectorSink(), qnorm_every=2)
 engine.hit(0, np.ones(16))
 engine.start()
@@ -49,6 +51,55 @@ with tempfile.TemporaryDirectory() as tmp:
     with device_trace(tmp):
         sess.warmup()
 print(len(names), "jax" in sys.modules, reference_modules())
+"""
+
+_SPATIAL_WITHOUT_JAX = r"""
+import tempfile, time
+import numpy as np
+from openpbso_tpu_torch.io.meta import resolve_model_dir
+from openpbso_tpu_torch.models import Scene, SceneInstance, load_model
+from openpbso_tpu_torch.ops import (DopplerPostMix, HRTFPostMix,
+                                    build_ffat_hetero, compress_map)
+from openpbso_tpu_torch.runtime import RawCollectorSink, StreamingEngine
+from openpbso_tpu_torch.utils.synth import synth_model_dir
+root = tempfile.mkdtemp()
+models = []
+for i in range(2):
+    synth_model_dir(f"{root}/{i}", "m", num_modes=10 + 4 * i, ffat_n=4,
+                    seed=i)
+    models.append(load_model(resolve_model_dir(f"{root}/{i}", "m")))
+insts = [SceneInstance(models[i % 2], np.asarray([0.5 * i, 0.0, 0.0]))
+         for i in range(3)]
+scene = Scene(insts, block_size=64, binaural=True, itd=True,
+              smooth_transfer=True, device="cpu")
+scene.session.ffat = build_ffat_hetero(
+    [x.model.ffat_maps for x in insts], scene.bank.num_modes, device="cpu",
+    compressed_maps=[{k: compress_map(v) for k, v in x.model.ffat_maps.items()}
+                     for x in insts])
+scene.set_listener(np.asarray([1.0, 1.0, 0.3]))
+scene.session.set_use_compressed(True)
+assert scene.session.state.transfer_im is not None
+scene.hit(0, 1)
+path = np.stack([np.linspace(1.0, 2.0, 4), np.ones(4), np.zeros(4)], 1)
+for out in (scene.render(2), scene.render_multi(4, blocks_per_dispatch=2),
+            scene.render_moving(path), scene.render_doppler(path)):
+    assert out.shape[1] == 2 and np.isfinite(out).all()
+pm = DopplerPostMix(scene.positions, num_listeners=2,
+                    gains=scene.session.gains, device="cpu")
+engine = StreamingEngine(scene.session, RawCollectorSink(), post_mix=pm,
+                         lookahead=2)
+engine.set_listener(np.asarray([1.5, 0.5, 0.2]))
+engine.hit(1, np.ones(14))
+engine.start()
+deadline = time.time() + 120
+while engine._blocks_done < 6 and time.time() < deadline:
+    time.sleep(0.01)
+engine.stop()
+assert engine.error is None and engine._blocks_done >= 6
+hrtf = HRTFPostMix(scene.positions, block_size=64, device="cpu")
+import torch
+assert hrtf.process_span(torch.ones((3, 128))).shape == (128, 2)
+print("jax" in sys.modules, reference_modules())
 """
 
 # prepended to each script: the modules of the JAX package it has loaded
@@ -85,6 +136,19 @@ def test_port_imports_and_renders_without_jax():
     assert int(n_modules) >= 24
     assert jax_loaded == "False"
     assert reference == "none"
+
+
+def test_spatial_path_runs_without_jax():
+    """The spatial modules (Scene, the compressed texture, the Doppler and
+    HRTF post-mixes) run a binaural ITD scene per block, by span, along a
+    path, with Doppler and through the engine, with neither jax nor
+    openpbso_tpu loaded."""
+    proc = subprocess.run(
+        [sys.executable, "-c", _DEF_REFERENCE_MODULES
+         + _SPATIAL_WITHOUT_JAX], capture_output=True, text=True, env=_env(),
+        cwd=ROOT, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.split() == ["False", "none"]
 
 
 def test_chip_smoke_imports_nothing_of_the_jax_package():

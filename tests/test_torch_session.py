@@ -174,8 +174,19 @@ def test_set_use_transfer_toggles_unit_transfer(assets):
                                atol=0)
     with pytest.raises(ValueError, match="listener"):
         sess.set_listener(np.zeros((2, 3)))
-    with pytest.raises(NotImplementedError, match="Scene"):
+    # [L, O, 3] rows are for a session with listeners: each listener's row
+    # is the single-listener lookup of its positions, bitwise
+    with pytest.raises(ValueError, match="listener"):
         sess.set_listener(np.zeros((2, O, 3)))
+    two = TSession(tbank, tffat, TConfig(block_size=S, backend="blocked"),
+                   num_listeners=2)
+    rows = np.stack([np.full((O, 3), 0.8), np.full((O, 3), -0.6)])
+    two.set_listener(rows)
+    assert two.state.transfer.shape == (2, O, tbank.num_modes)
+    for li in range(2):
+        sess.set_listener(rows[li])
+        torch.testing.assert_close(two.state.transfer[li],
+                                   sess.state.transfer, rtol=0, atol=0)
 
 
 def test_hit_validation(assets):
@@ -191,26 +202,39 @@ def test_hit_validation(assets):
 
 
 @pytest.mark.parametrize("call", [
-    lambda s: s._moving_path(np.zeros((4, 2, O, 3))),
-    lambda s: s.set_complex_transfer(np.ones((O, 128), complex)),
+    lambda s: s._moving_path(np.zeros((4, 2, O, 3))).shape == (4, 2, O, 3),
+    lambda s: (s.set_complex_transfer(np.full((2, O, 128), 1.0 + 2.0j))
+               or (torch.equal(s.state.transfer, torch.ones(2, O, 128))
+                   and torch.equal(s.state.transfer_im,
+                                   torch.full((2, O, 128), 2.0)))),
 ])
 def test_unported_methods_name_their_roadmap_item(assets, call):
+    """What the first slices refused now runs: a listener-stacked path and
+    complex listener rows (tests/test_torch_multilistener.py and
+    tests/test_torch_complex.py hold them against the JAX package)."""
     _, _, tbank, _ = assets
-    sess = TSession(tbank, config=TConfig(block_size=S))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1"):
-        call(sess)
+    sess = TSession(tbank, config=TConfig(block_size=S), num_listeners=2)
+    assert call(sess)
 
 
 @pytest.mark.parametrize("kwargs,item", [
-    (dict(num_listeners=2), "Scene: multi-listener rows"),
+    (dict(num_listeners=2), 2),
     (dict(num_listeners=4, config=TConfig(block_size=S,
-                                          smooth_transfer=True)), "Scene"),
-    (dict(num_listeners=0), "Scene"),
+                                          smooth_transfer=True)), 4),
+    (dict(num_listeners=0), 1),
 ])
 def test_unported_session_arguments_raise(assets, kwargs, item):
+    """Multi-listener sessions build ([L, O, M] rows, [O, L] gains, one
+    channel per listener); 0 reads as one listener, as in the JAX
+    package."""
     _, _, tbank, _ = assets
-    with pytest.raises(NotImplementedError, match=item):
-        TSession(tbank, **kwargs)
+    sess = TSession(tbank, **{"config": TConfig(block_size=S), **kwargs})
+    o, m = tbank.num_objects, tbank.num_modes
+    want = (o, m) if item == 1 else (item, o, m)
+    assert sess.state.transfer.shape == want
+    assert sess.gains.shape == (o, 2 if item == 1 else item)
+    sess.hit(0, np.ones(N))
+    assert sess.step()[1].shape == (S, 2 if item == 1 else item)
     # the session's own options of this slice build
     for cfg in (TConfig(block_size=S, smooth_transfer=True),
                 TConfig(block_size=S, compute_qnorm=True)):
