@@ -111,7 +111,34 @@ Phases, in order; any failure raises and the script exits non-zero:
    same Scene with [4, 3] world rows through DopplerPostMix(num_listeners
    =4), each per block against one span (<= -90 dB). Prints the binaural
    per-block and span ms, the span RTF, set_listener's latency with ITD
-   and the compressed lookup's ms beside the card's name and power limit.
+   and the compressed lookup's ms beside the card's name and power limit;
+9. the served path: phase 8's model directories as .meta files in scene
+   JSONs of O instances on phase 8's grid, served by apps/serve.py's
+   build_server to the port's own clients on threads over loopback, every
+   engine recording its events and dispatches. (a) --web --multi-client
+   --per-client-listeners 4,8 --live-doppler (the HUD's colour pusher on):
+   four WebSocket clients, unpaced, each moving its own listener every 20
+   blocks and striking, one dragging, one asking for its transfer
+   histogram; a fifth grows the bucket to 8 (the ring-down and the four
+   old Doppler delay lines carried bitwise, checked). Every block a client
+   receives is bitwise the next of its channel of the engine's blocks,
+   but for replays the engine's missed count allows and the blocks a swap
+   drops in flight; the first session's blocks (>= 120) against an
+   offline per-block replay of the recorded events through a fresh
+   DopplerPostMix, the grown session's from the state and post-mix its
+   stream started with (<= -90 dB before a drag, <= -60 dB with it); then
+   paced 3 s with the HUD on and 2 s off (p99, missed, the card's idle
+   share). (b) the TCP broadcast of a single-listener Scene: hits, a drag
+   retuned while impacts ring (the per-block path: the stream's own
+   fused_block and ar_block launches, start()'s warmup not counted, must
+   be > 0), PCM bitwise the engine's, stats, and a load_model hot swap to
+   one model's meta. (c) render_timeline.bake of a timeline with 64 hits
+   (three slot waves) and a drag, with listener keyframes (render_moving)
+   and without (render_multi), each against a per-block render of the
+   same script (<= -90 dB before the drag, <= -60 dB with it), and
+   render_offline's configs 1-5 with their report. Phase 9's launches in
+   the kernels line are the served streams' own (less each start() and
+   the first step of a session built beside them) and the bakes'.
 
 Every timed kernel also gets its device time: the torch.profiler duration
 of one launch, median over 30 calls (CUDA events time the host's enqueue
@@ -164,6 +191,14 @@ SCENE_LAST_HIT = 12          # no phase-8 hit later than this block
 SPATIAL_BLOCKS = 49          # 8b, 8c: a ramp block and three 16-block spans
 PER_CLIENT = 4               # 8f's listeners
 PER_CLIENT_BLOCKS = 8
+SERVED_CLIENTS = 4           # 9a: the first clients (bucket 4, then 8)
+SERVED_BLOCKS = 200          # blocks each of them reads at least
+SERVED_GROW_AT = 100         # the fifth client connects after these
+SERVED_LATE_BLOCKS = 60      # blocks the fifth client reads
+SERVED_COMPARED = 120        # 9a's blocks held against the offline replay
+SERVED_PACED_SECONDS = 3.0   # 9a paced with the HUD on (then 2 s off)
+MONO_BLOCKS = 100            # 9b: blocks each client reads
+BAKE_BLOCKS = 96             # 9c's timeline
 TOEPLITZ_DB = -110.0         # the 3xTF32 conv against its FP32 twin
 FUSED_DB = -110.0            # the 3xTF32 fused step against its FP32 twin
 TOEPLITZ_SHAPES = (   # the span's short chunks: label, (O, L, K, X, C)
@@ -2533,6 +2568,966 @@ def phase_spatial(dirs, seed) -> dict:
     return launches
 
 
+def write_served_scene(root, dirs, name, **extra):
+    """A scene JSON as apps/serve.py reads it: one .meta per phase-8 model
+    directory and O instances on phase 8's grid cycling through them.
+    Returns (its path, the metas)."""
+    from openpbso_tpu_torch.io.meta import resolve_model_dir, write_meta
+    metas = []
+    for i, d in enumerate(dirs):
+        meta = os.path.join(root, f"m{i}.meta")
+        write_meta(meta, resolve_model_dir(d, "m"))
+        metas.append(meta)
+    side = math.isqrt(O)
+    ij = np.stack(np.meshgrid(np.arange(side), np.arange(side),
+                              indexing="ij"), -1).reshape(-1, 2)
+    xy = (ij - (side - 1) / 2.0) * SCENE_SPACING
+    desc = dict(instances=[
+        {"meta": metas[i % len(metas)],
+         "position": [float(xy[i, 0]), float(xy[i, 1]), 0.0],
+         "gain": 1.0 + 0.1 * (i % 3)} for i in range(O)], **extra)
+    path = os.path.join(root, name)
+    with open(path, "w") as f:
+        json.dump(desc, f)
+    return path, metas
+
+
+@contextlib.contextmanager
+def served_engines():
+    """Make every StreamingEngine a server builds in this block a recording
+    one: it keeps the events it applies (record=True), the blocks of each
+    dispatch with its session, host start and end and a CUDA-event pair
+    (``dispatches``), the session as its stream starts (start() restores
+    it after warmup), its post-mix's start and the launches of each
+    start() (``start_launches``: its warmup and probe, read at the
+    stream's first dispatch; start() runs while no stream does). Yields
+    the engines made."""
+    import torch
+    from openpbso_tpu_torch.runtime import engine as engine_mod
+    base = engine_mod.StreamingEngine
+    made = []
+
+    class Served(base):
+        def __init__(self, session, sink, **kw):
+            kw["record"] = True
+            super().__init__(session, sink, **kw)
+            self.dispatches = []
+            self.first_session = session
+            self.start_vars = copied(vars(session))
+            pm = kw.get("post_mix")
+            self.pm_start = (None if pm is None else
+                             (np.array(pm.positions), pm.gains.clone(),
+                              pm._nl))
+            self.start_launches, self._start_mark = [], None
+            made.append(self)
+
+        def start(self):
+            self._start_mark = read_launches()
+            super().start()
+
+        def _synth_once(self):
+            if self._start_mark is not None:
+                self.start_launches.append(launch_delta(self._start_mark))
+                self._start_mark = None
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            sess = self.session
+            t = time.perf_counter()
+            a.record()
+            blocks = super()._synth_once()
+            b.record()
+            self.dispatches.append((sess, blocks, t, time.perf_counter(),
+                                    a, b))
+            return blocks
+
+    engine_mod.StreamingEngine = Served
+    try:
+        yield made
+    finally:
+        engine_mod.StreamingEngine = base
+
+
+class WSClient:
+    """A browser's side of the port's WebSocket bridge: the handshake, then
+    the bridge's own frame codec (wsbridge.encode_frame with the client's
+    mask spliced in, wsbridge._FrameReader for the server's frames)."""
+
+    def __init__(self, host, port):
+        import base64
+        import socket
+        from openpbso_tpu_torch.runtime.wsbridge import (_FrameReader,
+                                                         ws_accept_key)
+        self.sock = socket.create_connection((host, port), timeout=300)
+        key = base64.b64encode(os.urandom(16)).decode()
+        self.sock.sendall(
+            f"GET /ws HTTP/1.1\r\nHost: {host}\r\nUpgrade: websocket\r\n"
+            f"Connection: Upgrade\r\nSec-WebSocket-Key: {key}\r\n"
+            f"Sec-WebSocket-Version: 13\r\n\r\n".encode())
+        resp = b""
+        while b"\r\n\r\n" not in resp:
+            chunk = self.sock.recv(4096)
+            check(bool(chunk), "the bridge closed during the handshake")
+            resp += chunk
+        head, rest = resp.split(b"\r\n\r\n", 1)
+        check(b" 101 " in head.split(b"\r\n")[0] and
+              ws_accept_key(key).encode() in head,
+              f"bad WebSocket handshake: {head[:80]!r}")
+        self.reader = _FrameReader(self.sock, max_len=1 << 24)
+        self.reader._buf = rest
+        self.messages = []
+
+    def read_block(self):
+        from openpbso_tpu_torch.runtime.wsbridge import OP_BINARY, OP_TEXT
+        while True:
+            op, payload = self.reader.read_frame()
+            if op == OP_TEXT:
+                self.messages.append(json.loads(payload))
+            elif op == OP_BINARY:
+                return np.frombuffer(payload, "<f4").reshape(-1, 2)
+            else:
+                raise ConnectionError(f"websocket opcode {op}")
+
+    def _send_frame(self, opcode, payload):
+        # a client frame is the server's framing with the mask bit set and
+        # the masking key after the length
+        from openpbso_tpu_torch.runtime.wsbridge import encode_frame
+        mask = os.urandom(4)
+        masked = (np.frombuffer(payload, np.uint8)
+                  ^ np.resize(np.frombuffer(mask, np.uint8),
+                              len(payload))).tobytes()
+        frame = encode_frame(opcode, masked)
+        n_head = len(frame) - len(masked)
+        self.sock.sendall(frame[:1] + bytes([frame[1] | 0x80])
+                          + frame[2:n_head] + mask + masked)
+
+    def send(self, **msg):
+        from openpbso_tpu_torch.runtime.wsbridge import OP_TEXT
+        self._send_frame(OP_TEXT, json.dumps(msg).encode())
+
+    def close(self):
+        from openpbso_tpu_torch.runtime.wsbridge import OP_CLOSE
+        with contextlib.suppress(OSError):
+            self._send_frame(OP_CLOSE, b"")
+        self.sock.close()
+
+
+class ServedClient(threading.Thread):
+    """One client of a served stream on its own thread: connects (TCP or
+    WebSocket), reads at least ``n_blocks`` and, given ``stop`` (an Event),
+    on until it is set, sending the commands of ``schedule`` ({block:
+    [command]}) as its count of read blocks passes each, then quits."""
+
+    def __init__(self, address, web, n_blocks, schedule, stop=None):
+        super().__init__(daemon=True)
+        self.address, self.web = address, web
+        self.n_blocks, self.schedule = n_blocks, schedule
+        self.stop_evt = stop
+        self.blocks, self.error = [], None
+        self.connected = threading.Event()
+
+    def run(self):
+        from openpbso_tpu_torch.runtime.server import AudioClient
+        try:
+            c = (WSClient(*self.address) if self.web
+                 else AudioClient(*self.address))
+            self.client, self.t_connect = c, time.perf_counter()
+            self.connected.set()
+            k = 0
+            while k < self.n_blocks or (self.stop_evt is not None
+                                        and not self.stop_evt.is_set()):
+                for cmd in self.schedule.get(k, ()):
+                    c.send(**cmd)
+                self.blocks.append(c.read_block())
+                k += 1
+            c.send(cmd="quit")
+            c.close()
+        except BaseException as e:  # noqa: BLE001 — checked by the phase
+            self.error = e
+            self.connected.set()
+
+    @property
+    def slot(self):
+        return next((m["listener_slot"] for m in self.client.messages
+                     if "listener_slot" in m), None)
+
+
+def join_clients(clients, seconds=300.0):
+    deadline = time.perf_counter() + seconds
+    for c in clients:
+        c.join(timeout=max(0.0, deadline - time.perf_counter()))
+        check(not c.is_alive(), "a served client did not finish in time")
+        check(c.error is None, f"a served client failed: {c.error!r}")
+
+
+def launch_delta(before) -> dict:
+    return {k: n - before[k] for k, n in read_launches().items()}
+
+
+def count_first_step(build, windows):
+    """Wrap a session factory (returning a session, or (model, session)):
+    the launches from the start of each built session's first step() to
+    its return are appended to ``windows``. A server takes that step on a
+    client's thread while the live stream runs, so a window holds the
+    stream's launches of that time too."""
+    def wrapped(*a, **kw):
+        out = build(*a, **kw)
+        sess = out[1] if isinstance(out, tuple) else out
+        step = sess.step
+
+        def first(*sa, **skw):
+            del sess.step
+            before = read_launches()
+            try:
+                return step(*sa, **skw)
+            finally:
+                windows.append(launch_delta(before))
+        sess.step = first
+        return out
+    return wrapped
+
+
+def stream_launches(total, engine, builds) -> dict:
+    """A served stream's own launches: ``total`` (from reset_launches() to
+    the stop) less each start()'s and less each window in which a built
+    session took its first step. The stream's launches inside those
+    windows go too, so this is a lower bound of the stream's count."""
+    out = dict(total)
+    for d in engine.start_launches + builds:
+        for k in out:
+            out[k] -= d[k]
+    return out
+
+
+def produced_blocks(engine) -> list:
+    """(session, block) of every block the engine's dispatches produced,
+    in order."""
+    return [(d[0], b) for d in engine.dispatches for b in d[1]]
+
+
+def match_stream(received, produced, channel, replays, in_flight) -> dict:
+    """Hold a client's received blocks against the engine's produced ones
+    (its ``channel`` duplicated to stereo; None the whole mix). Silent
+    blocks before the client's first sound stand for the silent blocks
+    produced before that sound (``silent_lead``; those beyond that run
+    count as replays). From there every block must be bitwise the next
+    produced one, with two exceptions the engine explains:
+
+    - a replay: the consumer's underrun writes its last block again, or
+      silence when a swap cleared it (only with a session's first block
+      at most ``in_flight`` blocks ahead); at most ``replays`` (the
+      engine's missed blocks) in all;
+    - a skip: a swap drops the blocks in flight, at most ``in_flight``
+      of one session's last blocks, up to the next session's first.
+    """
+    cols = [b if channel is None else
+            b[:, [channel, channel]] if channel < b.shape[1] else None
+            for _, b in produced]   # None: a block before a grow gave it
+    n = len(cols)
+    first = [k > 0 and produced[k][0] is not produced[k - 1][0]
+             for k in range(n)]
+
+    def equal(r, k):
+        return cols[k] is not None and np.array_equal(r, cols[k])
+
+    def silent(k):
+        return cols[k] is not None and not cols[k].any()
+    out = dict(matched=0, replayed=0, dropped=0, silent_lead=0,
+               joined_at=None)
+    p, last = None, None
+    for r in received:
+        if p is None:
+            if not r.any():
+                out["silent_lead"] += 1
+                last = r
+                continue
+            j = next((k for k in range(n) if equal(r, k)), None)
+            check(j is not None, f"a client (channel {channel}) received a "
+                  "block the engine never produced")
+            z = 0
+            while z < j and silent(j - 1 - z):
+                z += 1
+            out["replayed"] += max(0, out["silent_lead"] - z)
+            out["joined_at"] = j - min(z, out["silent_lead"])
+        elif p < n and equal(r, p):
+            j = p
+        elif last is not None and np.array_equal(r, last):
+            out["replayed"] += 1
+            continue
+        elif not r.any() and any(first[k] for k in range(
+                p, min(n, p + in_flight + 1))):
+            out["replayed"] += 1
+            last = r
+            continue
+        else:
+            j = next((k for k in range(p + 1, min(n, p + in_flight + 1))
+                      if equal(r, k)), None)
+            check(j is not None and first[j]
+                  and not any(first[k] for k in range(p + 1, j)),
+                  f"a client (channel {channel}) received a block out of "
+                  f"order or lost more than {in_flight} after block {p}")
+            out["dropped"] += j - p
+        out["matched"] += 1
+        p, last = j + 1, r
+    check(out["matched"] > 0, f"channel {channel} never matched a block")
+    check(out["replayed"] <= replays, f"channel {channel}: {out['replayed']}"
+          f" replays, the engine missed {replays} blocks")
+    return out
+
+
+def replay_engine_events(sess, post_mix, recorded, n_blocks):
+    """The engine's first n_blocks offline: its session put back as its
+    stream started, each recorded event applied at the block where the
+    engine applied it (in the engine's order), stepped per block through
+    ``post_mix``."""
+    events = {}
+    for clock, ev in recorded:
+        events.setdefault(clock, []).append(ev)
+    out = []
+    for _ in range(n_blocks):
+        for ev in events.pop(sess.sample_clock, ()):
+            kind = type(ev).__name__
+            if kind == "HitEvent":
+                sess.hit(ev.obj, ev.space, kind=ev.kind,
+                         width_us=ev.width_us, amp=ev.amp)
+            elif kind == "SustainedEvent":
+                if ev.action == "start":
+                    sess.sustained_start(ev.obj, ev.space)
+                elif ev.action == "update":
+                    sess.sustained_update(ev.obj, ev.space)
+                else:
+                    sess.sustained_end(ev.obj)
+            elif kind == "TransferEvent":
+                sess.set_listener(ev.listener)
+                if post_mix is not None:
+                    post_mix.on_listener(ev.listener)
+            elif kind == "ArParamEvent":
+                sess.set_ar_params(ev.obj, ev.a, ev.sigma, ev.mu)
+            else:
+                check(False, f"no offline replay for {kind}")
+        sound, mix, _ = sess.step()
+        out.append((mix if post_mix is None else post_mix(sound, mix))
+                   .cpu().numpy())
+    return np.concatenate(out)
+
+
+def post_mix_copy(pm):
+    """A DopplerPostMix with its own copy of the state a dispatch moves."""
+    import copy
+    out = copy.copy(pm)
+    out._hist = pm._hist.clone()
+    for k in ("positions", "velocities", "_d_cur", "_d_tgt",
+              "_last_listener"):
+        setattr(out, k, np.array(getattr(pm, k)))
+    return out
+
+
+def grow_probe(srv, log):
+    """Wrap the server's state carry (it runs while the stream is parked):
+    record the old session's final state and post-mix, its profiler's
+    statistics and the engine's event count; then, as the grown stream
+    starts (after start()'s warmup), the grown session's state, all its
+    attributes and the post-mix it starts with."""
+    import dataclasses
+    carry = srv._carry_state_across_grow
+
+    def probe(old, new):
+        engine = srv._engine
+        st = engine.profiler.stats()
+        entry = dict(old=[x.clone() for x in (old.state.z_re, old.state.z_im,
+                                              old.state.slots.t0)],
+                     old_clock=old._clock, events=len(engine.recorded),
+                     old_pm=post_mix_copy(engine._post_mix),
+                     stats_before=dataclasses.asdict(st) if st else None,
+                     t_swap=time.perf_counter())
+        log.append(entry)
+        ok = carry(old, new)
+        warmup = new.warmup
+
+        def after(**kw):
+            warmup(**kw)
+            new.warmup = warmup
+            entry["new"] = [x.clone() for x in (new.state.z_re,
+                                                new.state.z_im,
+                                                new.state.slots.t0)]
+            entry["new_clock"] = new._clock
+            entry["new_session"] = new
+            entry["new_vars"] = copied(vars(new))
+            entry["new_pm"] = post_mix_copy(engine._post_mix)
+        new.warmup = after
+        return ok
+    srv._carry_state_across_grow = probe
+
+
+def first_block_after(engine, t) -> float | None:
+    """Host ms of the first dispatch that started after time ``t``."""
+    return next((1e3 * (d[3] - d[2]) for d in engine.dispatches
+                 if d[2] >= t), None)
+
+
+HUD_PAGE = 86     # blocks between the demo page's transfer_hist requests
+                  # (wsbridge.py's page: one a second, stats every two)
+
+
+def served_schedule(i, n_blocks, hud=0, drag=False):
+    """Client i's commands: a move of its own listener every 20 blocks,
+    hits on objects of its own, with ``drag`` a sustain at block 30
+    released at block 120, with ``hud`` > 0 the transfer histogram of its
+    row every ``hud`` blocks (and stats every 2 * hud)."""
+    sched = {}
+
+    def add(b, cmd):
+        sched.setdefault(b, []).append(cmd)
+    for b in range(0, n_blocks, 20):
+        add(b, {"cmd": "listener", "pos": (
+            SCENE_LISTENER + np.array([0.6 * i - 0.9 + 0.1 * np.sin(b),
+                                       0.3 * np.cos(0.1 * b), 0.0])).tolist()})
+    for k, b in enumerate(range(3 + i, n_blocks - 10, 13)):
+        add(b, {"cmd": "hit", "obj": (61 * i + 17 * k) % O,
+                "vertex": (5 * k + i) % 12,
+                "kind": ("point", "gaussian", "hertz")[k % 3],
+                "width_us": 300.0 + 100.0 * (k % 5), "amp": 1.0})
+    if drag:
+        add(30, {"cmd": "sustain", "obj": 10, "vertex": 4})
+        add(120, {"cmd": "release", "obj": 10})
+    if hud:
+        for b in range(5, n_blocks, hud):
+            add(b, {"cmd": "transfer_hist", "obj": (7 * b) % O,
+                    "listener": i})
+        for b in range(7, n_blocks, 2 * hud):
+            add(b, {"cmd": "stats"})
+    return sched
+
+
+def served_window(srv, engine, seconds, hud, n_clients) -> dict:
+    """The running server paced at the audio rate for ``seconds`` with
+    n_clients fresh WebSocket clients (hits and listener moves; with
+    ``hud`` each also asks for its transfer histogram every ``hud``
+    blocks):
+    the profiler's statistics, missed blocks, the card's idle share by the
+    dispatches' CUDA events, and the host ms the histogram replies took
+    on the clients' threads (the payload, then its JSON frame)."""
+    import gc
+
+    import torch
+    from openpbso_tpu_torch.config import SAMPLE_RATE
+    from openpbso_tpu_torch.runtime import wsbridge
+    from openpbso_tpu_torch.runtime.profiling import BlockProfiler
+    from openpbso_tpu_torch.runtime.server import RealTimePacer
+    srv._fanout._pacer = RealTimePacer(0.05)
+    hud_ms = {"payload": [], "send": []}
+    payload, send = srv._transfer_hist_payload, wsbridge._WSSink.send_json
+
+    def timed_payload(*a, **kw):
+        t = time.perf_counter()
+        out = payload(*a, **kw)
+        hud_ms["payload"].append(1e3 * (time.perf_counter() - t))
+        return out
+
+    def timed_send(sink, obj):
+        t = time.perf_counter()
+        send(sink, obj)
+        if "transfer_hist" in obj:
+            hud_ms["send"].append(1e3 * (time.perf_counter() - t))
+    srv._transfer_hist_payload = timed_payload
+    wsbridge._WSSink.send_json = timed_send
+    gc.collect()
+    engine.profiler = BlockProfiler(S, SAMPLE_RATE)
+    missed0, n0 = engine.health.missed, len(engine.dispatches)
+    stop = threading.Event()
+    clients = [ServedClient(srv.address, True, 0,
+                            served_schedule(i, 2000, hud), stop)
+               for i in range(n_clients)]
+    for c in clients:
+        c.start()
+    t0 = time.perf_counter()
+    time.sleep(seconds)
+    stop.set()
+    wall = time.perf_counter() - t0
+    st = engine.profiler.stats()
+    missed = engine.health.missed - missed0
+    join_clients(clients)
+    srv._transfer_hist_payload = payload
+    wsbridge._WSSink.send_json = send
+    torch.cuda.synchronize()
+    window = [d for d in engine.dispatches[n0:]
+              if t0 <= d[2] and d[3] <= t0 + wall]
+    busy_ms = sum(d[4].elapsed_time(d[5]) for d in window)
+    return dict(seconds=wall, blocks=sum(len(d[1]) for d in window),
+                missed=missed, p50_ms=st.p50_ms, p95_ms=st.p95_ms,
+                p99_ms=st.p99_ms, max_ms=st.max_ms,
+                dispatch_event_ms_sum=busy_ms,
+                idle_share_by_events=1.0 - busy_ms / (1e3 * wall),
+                hud=hud, hud_replies=len(hud_ms["payload"]),
+                **{f"hud_{k}_ms_{f.__name__}": float(f(v)) if v else None
+                   for k, v in hud_ms.items() for f in (np.median, max)})
+
+
+def phase_served_web(scene_json) -> tuple:
+    """Phase 9a: apps/serve.py's WebSocket broadcast of the Scene with
+    per-client listeners in buckets 4, 8 and live Doppler."""
+    import torch
+    from openpbso_tpu_torch.apps import serve
+    from openpbso_tpu_torch.ops.doppler import DopplerPostMix
+    from openpbso_tpu_torch.runtime.server import RealTimePacer
+    args = serve.parse_args([
+        "--scene", scene_json, "--web", "--multi-client",
+        "--per-client-listeners", "4,8", "--live-doppler", "--lookahead",
+        "1", "--port", "0", "--block", str(S)])
+    out = {}
+    with served_engines() as engines:
+        t = time.perf_counter()
+        srv = serve.build_server(args)
+        out["build_s"] = time.perf_counter() - t
+        check(type(srv).__name__ == "BroadcastWebSocketAudioServer"
+              and srv._qnorm_every == QNORM_EVERY,
+              f"serve built {type(srv).__name__}, qnorm {srv._qnorm_every}")
+        srv._client_depth = 1 << 16    # the bitwise check wants every block
+        srv._fanout._pacer = RealTimePacer(None)          # unpaced first
+        grows = []
+        grow_probe(srv, grows)
+        reset_launches()
+        server = threading.Thread(target=srv.serve_forever, daemon=True)
+        t = time.perf_counter()
+        server.start()
+        try:
+            check(poll(lambda: srv._engine is not None and engines), "no "
+                  "engine started")
+            engine = engines[0]
+            out["start_s"] = time.perf_counter() - t
+            builds = []     # the grow's first step, beside the stream
+            srv._make_session = count_first_step(srv._make_session, builds)
+            # the first clients read on until the fifth has finished, so
+            # that they hold slots 0-3 across the grow
+            held = threading.Event()
+            first = [ServedClient(srv.address, True, SERVED_BLOCKS,
+                                  served_schedule(i, SERVED_BLOCKS,
+                                                  hud=10 * (i == 1),
+                                                  drag=(i == 0)), held)
+                     for i in range(SERVED_CLIENTS)]
+            for c in first:
+                c.start()
+                c.connected.wait(300)
+            check(poll(lambda: len(first[0].blocks) >= SERVED_GROW_AT),
+                  "the first client stalled")
+            late = ServedClient(srv.address, True, SERVED_LATE_BLOCKS, {
+                2: [{"cmd": "hit", "obj": 3, "vertex": 2,
+                     "kind": "gaussian", "width_us": 800.0}]})
+            late.start()
+            join_clients([late])
+            held.set()
+            join_clients(first)
+            out["grow"] = srv.grows[:]
+            check(len(srv.grows) == 1 and srv.grows[0]["carried"]
+                  and srv._pcl == 8, f"grows {srv.grows}, L {srv._pcl}")
+            g = grows[0]
+            check(all(torch.equal(a, b) for a, b in zip(g["old"], g["new"]))
+                  and g["old_clock"] == g["new_clock"],
+                  "the grow did not carry the ring-down bitwise")
+            check(float(g["old"][0].abs().max()) > 0,
+                  "nothing rang at the grow")
+            # the Doppler delay lines of the four old columns carried too
+            old_pm, new_pm = g["old_pm"], g["new_pm"]
+            check(new_pm._nl == 8 and torch.equal(new_pm._hist[:, :4],
+                                                   old_pm._hist)
+                  and np.array_equal(new_pm._d_cur[:, :4], old_pm._d_cur)
+                  and np.array_equal(new_pm._d_tgt[:, :4], old_pm._d_tgt)
+                  and float(old_pm._hist.abs().max()) > 0
+                  and not new_pm._hist[:, 4:].any(),
+                  "the grow did not carry the delay lines bitwise")
+            out["grow"][0]["stats_before"] = g["stats_before"]
+            # the blocks dispatched while the grow built its Scene on a
+            # client's thread, and the second after the swap
+            t1 = g["t_swap"]
+            t0 = t1 - srv.grows[0]["seconds"]
+            for key, lo, hi in (("during", t0, t1),
+                                ("after", t1, t1 + 1.0)):
+                ms = [1e3 * (d[3] - d[2]) for d in engine.dispatches
+                      if lo <= d[2] < hi]
+                out["grow"][0][f"blocks_{key}"] = dict(
+                    n=len(ms), p50_ms=float(np.percentile(ms, 50)),
+                    p99_ms=float(np.percentile(ms, 99)),
+                    max_ms=max(ms)) if ms else None
+            produced = produced_blocks(engine)
+            out["clients"] = []
+            missed = engine.health.missed
+            in_flight = engine._sound.maxsize + engine.lookahead
+            for c in first + [late]:
+                m = match_stream(c.blocks, produced, c.slot, missed,
+                                 in_flight)
+                out["clients"].append(dict(
+                    m, slot=c.slot, received=len(c.blocks),
+                    first_block_ms=first_block_after(engine, c.t_connect)))
+            check(sorted(c["slot"] for c in out["clients"]) == [0, 1, 2, 3,
+                                                                  4],
+                  f"slots {[c['slot'] for c in out['clients']]}")
+            check(any(h for c in first for h in c.client.messages
+                      if "transfer_hist" in h), "no transfer_hist reply")
+            # the first session's blocks against its offline replay
+            sess = engine.first_session
+            n_first = sum(1 for s, _ in produced if s is sess)
+            recorded = engine.recorded[:g["events"]]
+            clocks = [clock for clock, ev in recorded
+                      if type(ev).__name__ == "HitEvent"]
+            drags = [clock for clock, ev in recorded
+                     if type(ev).__name__ == "SustainedEvent"]
+            check(bool(clocks) and bool(drags), "no hit or drag before the "
+                  "grow")
+            c0 = engine.start_vars["_clock"]
+            n_pre = (min(drags) - c0) // S
+            n_cmp = min(n_first, max(SERVED_COMPARED, n_pre + 40))
+            check(n_pre > (min(clocks) - c0) // S and n_pre <= n_cmp,
+                  f"hits from block {(min(clocks) - c0) // S}, drag from "
+                  f"{n_pre}, {n_cmp} compared")
+        finally:
+            srv._fanout._pacer = RealTimePacer(None)
+        out["unpaced_stats"] = stats_dict(engine)
+        out["unpaced_missed"] = engine.health.missed
+        # the HUD (the colour pusher runs throughout): off, at the demo
+        # page's rate (a histogram a second, stats every two), at ten
+        # times that, off
+        out["paced_hud_off_before"] = served_window(
+            srv, engine, SERVED_PACED_SECONDS / 2, 0, SERVED_CLIENTS)
+        out["paced_hud_on"] = served_window(srv, engine, SERVED_PACED_SECONDS,
+                                            HUD_PAGE, SERVED_CLIENTS)
+        out["paced_hud_x10"] = served_window(
+            srv, engine, SERVED_PACED_SECONDS / 2, 10, SERVED_CLIENTS)
+        out["paced_hud_off"] = served_window(
+            srv, engine, SERVED_PACED_SECONDS / 2, 0, SERVED_CLIENTS)
+        srv.close()
+        server.join(timeout=60)
+        torch.cuda.synchronize()
+        out["launches_total"] = total = read_launches()
+        out["launches_of_starts"] = engine.start_launches
+        out["launches_of_builds"] = builds
+        out["launches"] = counts = stream_launches(total, engine, builds)
+        check(engine.error is None, f"served engine error {engine.error!r}")
+        check(len(engine.start_launches) == 2 and len(builds) == 1,
+              f"{len(engine.start_launches)} starts, {len(builds)} builds")
+    vars(sess).clear()
+    vars(sess).update(copied(engine.start_vars))
+    pos, gains, nl = engine.pm_start
+    pm = DopplerPostMix(pos, num_listeners=nl, gains=gains)
+    pm.reset()
+    ref = replay_engine_events(sess, pm, recorded, n_cmp)
+    got = np.concatenate([b for s, b in produced[:n_cmp]])
+    check(float(np.abs(ref[:n_pre * S]).max()) > 0, "offline replay silent")
+    out["db_first_blocks_vs_offline"] = db_error(got[:n_pre * S],
+                                                 ref[:n_pre * S])
+    out["db_with_drags_vs_offline"] = db_error(got, ref)
+    out.update(compared_blocks=n_cmp, blocks_before_drag=n_pre)
+    check(out["db_first_blocks_vs_offline"] <= -90.0
+          and out["db_with_drags_vs_offline"] <= -60.0,
+          f"served stream vs offline {out['db_first_blocks_vs_offline']} / "
+          f"{out['db_with_drags_vs_offline']} dB")
+    # the grown session's blocks against the same replay from the state
+    # and post-mix its stream started with (carried, then warmed up)
+    grown = g["new_session"]
+    vars(grown).clear()
+    vars(grown).update(copied(g["new_vars"]))
+    n_grown = min(SERVED_COMPARED,
+                  sum(1 for s, _ in produced if s is grown))
+    later = engine.recorded[g["events"]:]
+    starts = [clock for clock, ev in later
+              if type(ev).__name__ == "SustainedEvent"
+              and ev.action == "start"]
+    n_quiet = (0 if g["new_vars"]["_sus_active"].any() else
+               min([n_grown] + [(c - g["new_clock"]) // S for c in starts]))
+    ref = replay_engine_events(grown, g["new_pm"], later, n_grown)
+    got = np.concatenate([b for s, b in produced if s is grown][:n_grown])
+    check(n_grown >= 20 and float(np.abs(ref).max()) > 0,
+          f"{n_grown} blocks after the grow, replay peak "
+          f"{float(np.abs(ref).max())}")
+    out["grown"] = dict(
+        compared_blocks=n_grown, blocks_before_drag=n_quiet,
+        db_vs_offline=db_error(got, ref),
+        db_before_drag_vs_offline=(db_error(got[:n_quiet * S],
+                                            ref[:n_quiet * S])
+                                   if n_quiet else None))
+    check(out["grown"]["db_vs_offline"] <= -60.0
+          and (not n_quiet
+               or out["grown"]["db_before_drag_vs_offline"] <= -90.0),
+          f"the grown stream vs offline {out['grown']}")
+    for name in ("chunk_scan", "toeplitz_conv", "ar_noise"):
+        check(counts[name] > 0, f"9a's stream never launched {name}: "
+              f"{counts}")
+    print("served web:", json.dumps(out, default=float), flush=True)
+    return out, counts
+
+
+def phase_served_mono(scene_json, metas) -> tuple:
+    """Phase 9b: the TCP broadcast of a single-listener Scene, a retuned
+    drag meeting live impacts (per-block steps through fused_block and
+    ar_block), then stats and a load_model hot swap."""
+    import torch
+    from openpbso_tpu_torch.apps import serve
+    from openpbso_tpu_torch.apps.real_time_modal_sound import \
+        session_from_meta
+    from openpbso_tpu_torch.runtime.server import RealTimePacer
+    args = serve.parse_args(["--scene", scene_json, "--multi-client",
+                             "--port", "0", "--block", str(S)])
+    out = {}
+    with served_engines() as engines:
+        t = time.perf_counter()
+        srv = serve.build_server(args)
+        out["build_s"] = time.perf_counter() - t
+        args.instances = O
+        builds = []     # load_model's first step, beside the stream
+        srv._session_loader = count_first_step(
+            lambda meta: session_from_meta(args, meta), builds)
+        srv._client_depth = 1 << 16
+        srv._fanout._pacer = RealTimePacer(None)
+        reset_launches()
+        server = threading.Thread(target=srv.serve_forever, daemon=True)
+        server.start()
+        check(poll(lambda: srv._engine is not None and engines),
+              "no engine started")
+        engine = engines[0]
+        hits = {b: [{"cmd": "hit", "obj": 5, "vertex": b % 12,
+                     "kind": "gaussian", "width_us": 2000.0}]
+                for b in range(20, 60, 2)}
+        hits[3] = [{"cmd": "hit", "obj": 100, "vertex": 1}]
+        drags = {10: [{"cmd": "sustain", "obj": 9, "vertex": 3}],
+                 15: [{"cmd": "arparam", "obj": 9, "a": [0.6, 0.2],
+                       "sigma": 0.003, "mu": 0.1}],
+                 80: [{"cmd": "release", "obj": 9}]}
+        clients = [ServedClient(srv.address, False, MONO_BLOCKS, sched)
+                   for sched in (hits, drags)]
+        for c in clients:
+            c.start()
+            c.connected.wait(300)
+        join_clients(clients)
+        stream_counts = stream_launches(read_launches(), engine, [])
+        produced = produced_blocks(engine)
+        out["clients"] = [match_stream(c.blocks, produced, None,
+                                       engine.health.missed, 0)
+                          for c in clients]
+        out["stream_stats"] = stats_dict(engine)
+        out["stream_launches"] = stream_counts
+        out["launches_of_start"] = engine.start_launches[0]
+        for name in ("fused_block", "ar_block"):
+            check(stream_counts[name] > 0, f"9b's stream never launched "
+                  f"{name}: {stream_counts}")
+        from openpbso_tpu_torch.runtime.server import AudioClient
+        c = AudioClient(*srv.address)
+        read = []
+        c.send(cmd="stats")
+        check(poll_client(c, read, lambda: any("health" in m
+                                               for m in c.messages)),
+              "no stats reply")
+        out["stats_reply"] = next(m for m in c.messages if "health" in m)
+        t = time.perf_counter()
+        c.send(cmd="load_model", meta=metas[1])
+        check(poll_client(c, read, lambda: any("loaded" in m or "error" in m
+                                               for m in c.messages)),
+              "no load_model reply")
+        reply = next(m for m in c.messages if "loaded" in m or "error" in m)
+        out["load_model_s"] = time.perf_counter() - t
+        out["load_model_reply"] = reply
+        check(reply.get("loaded") == metas[1] and reply["objects"] == O
+              and reply["modes"] >= M, f"load_model: {reply}")
+        c.send(cmd="hit", obj=7, vertex=2, kind="gaussian", width_us=900.0)
+        n_read = len(read)
+        check(poll_client(c, read, lambda: any(
+            float(np.abs(b).max()) > 0 for b in read[n_read:])),
+              "the swapped model is silent")
+        c.send(cmd="quit")
+        c.close()
+        srv.close()
+        server.join(timeout=60)
+        torch.cuda.synchronize()
+        check(engine.error is None, f"9b engine error {engine.error!r}")
+        check(len(engine.start_launches) == 2 and len(builds) == 1,
+              f"{len(engine.start_launches)} starts, {len(builds)} builds")
+        out["launches_of_load_model"] = dict(start=engine.start_launches[1],
+                                             first_step=builds[0])
+        out["launches"] = counts = stream_launches(read_launches(), engine,
+                                                   builds)
+    print("served mono:", json.dumps(out, default=float), flush=True)
+    return out, counts
+
+
+def poll(cond, seconds=300.0) -> bool:
+    deadline = time.perf_counter() + seconds
+    while time.perf_counter() < deadline:
+        if cond():
+            return True
+        time.sleep(0.005)
+    return bool(cond())
+
+
+def poll_client(c, read, cond, blocks=20000) -> bool:
+    """Read blocks from an AudioClient into ``read`` until ``cond``."""
+    for _ in range(blocks):
+        if cond():
+            return True
+        read.append(c.read_block())
+    return bool(cond())
+
+
+def bake_timeline(n_blocks, seed) -> dict:
+    """9c's timeline: 40 hits on object 7 two blocks apart from block 8
+    (more than its 16 slots: waves at blocks 0, 40 and 72) and 24 on other
+    objects, three listener keyframes, one drag with a sigma/mu retune
+    (blocks 16, 24, 56), per-block listener rows (no ramp). Every action
+    falls on a multiple of 8 blocks, so each span of the render without
+    keyframes is 8k blocks and takes the one chunk size C = 512."""
+    rng = np.random.default_rng(seed)
+    blk = S / 44100.0
+    events = [{"t": (8 + 2 * k) * blk, "obj": 7,
+               "space": rng.standard_normal(M).tolist(),
+               "kind": ("point", "gaussian")[k % 2], "width_us": 500.0}
+              for k in range(40)]
+    events += [{"t": float(rng.integers(0, n_blocks - 4)) * blk,
+                "obj": int(rng.integers(8, O)),
+                "space": rng.standard_normal(M).tolist(),
+                "kind": "hertz", "width_us": 800.0} for _ in range(24)]
+    space = rng.standard_normal(M).tolist()
+    return {"duration_s": n_blocks * blk, "events": events, "smooth": False,
+            "listener": [{"t": 0.0, "pos": [0.4, 0.2, 1.2]},
+                         {"t": 0.5 * n_blocks * blk, "pos": [1.5, 0.1, 0.4]},
+                         {"t": n_blocks * blk, "pos": [-0.6, 0.8, 1.0]}],
+            "sustained": [{"t": 16 * blk, "obj": 11, "action": "start",
+                           "space": space},
+                          {"t": 24 * blk, "obj": 11, "action": "arparam",
+                           "a": [0.783, 0.116], "sigma": 0.003, "mu": 0.1},
+                          {"t": 56 * blk, "obj": 11, "action": "end"}],
+            "seed": 3}
+
+
+def per_block_timeline(sess, timeline):
+    """The same timeline stepped per block: each event applied at its
+    block and, with listener keyframes, each block's listener row set
+    before it steps."""
+    from openpbso_tpu_torch.apps import render_timeline
+    n = int(np.ceil(timeline["duration_s"] * 44100 / S))
+    rows = (render_timeline.listener_blocks(timeline["listener"], n, S)
+            if "listener" in timeline else None)
+    at = {}
+    for ev in timeline["events"]:
+        at.setdefault(int(round(ev["t"] * 44100 / S)), []).append(
+            lambda s, ev=ev: s.hit(ev["obj"], np.asarray(ev["space"]),
+                                   kind=ev["kind"],
+                                   width_us=ev["width_us"]))
+    for ev in timeline["sustained"]:
+        at.setdefault(int(round(ev["t"] * 44100 / S)), []).append(
+            lambda s, ev=ev: render_timeline._apply_sustained(s, ev))
+    out = []
+    for b in range(n):
+        for fn in at.get(b, ()):
+            fn(sess)
+        if rows is not None:
+            sess.set_listener(rows[b])
+        out.append(sess.step()[1].cpu().numpy())
+    return np.concatenate(out)
+
+
+def phase_offline_apps(scene, modes, seed) -> tuple:
+    """Phase 9c: render_timeline.bake at O x M against the per-block
+    render of the same script, with listener keyframes (render_moving:
+    fused_block, ar_block) and without (render_multi: the span kernels),
+    then render_offline's configs 1-5. The bank is heterogeneous with four
+    distinct mode sets (phase 4's first four, repeated as a Scene of four
+    models repeats them), so its span tables take seconds, not minutes;
+    the maps and listeners are phase 4's."""
+    import torch
+    from openpbso_tpu_torch.apps import render_offline, render_timeline
+    four = tuple(np.tile(x[:4], (O // 4, 1)) for x in modes)
+    scene = dict(scene, bank=hetero_bank(O, M, S, scene["bank"].device,
+                                         four))
+    lam64 = four[0]
+    out = {}
+    counts = dict.fromkeys(KERNELS, 0)
+    moving = bake_timeline(BAKE_BLOCKS, seed)
+    fixed = {k: v for k, v in moving.items() if k != "listener"}
+    for label, timeline, kernels in (
+            ("keyframes", moving, ("fused_block", "ar_block")),
+            ("fixed", fixed, ("chunk_scan", "toeplitz_conv", "ar_noise"))):
+        reset_launches()
+        sess = live_session(scene, lam64, smooth=False)
+        waves = render_timeline._hit_waves(sess, timeline["events"],
+                                           BAKE_BLOCKS)
+        check(len(waves) >= 3, f"{len(waves)} hit waves")
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        baked = render_timeline.bake(sess, timeline)
+        bake_s = time.perf_counter() - t
+        bake_counts = read_launches()
+        for name, n in bake_counts.items():
+            counts[name] += n
+        ref_sess = live_session(scene, smooth=False)
+        render_timeline._reseed_sustained(ref_sess, timeline["seed"])
+        ref = per_block_timeline(ref_sess, timeline)
+        n_pre = 20 * S
+        k = dict(bake_s=bake_s, waves=len(waves), launches=bake_counts,
+                 db_before_drag=db_error(baked[:n_pre], ref[:n_pre]),
+                 db=db_error(baked, ref))
+        out[label] = k
+        check(baked.shape == ref.shape and float(np.abs(ref).max()) > 0,
+              f"bake {label} {baked.shape} vs {ref.shape}")
+        check(k["db_before_drag"] <= -90.0 and k["db"] <= -60.0,
+              f"bake {label} vs per block {k['db_before_drag']} / "
+              f"{k['db']} dB")
+        for name in kernels:
+            check(bake_counts[name] > 0, f"bake {label} never launched "
+                  f"{name}: {bake_counts}")
+    report = []
+    with tempfile.TemporaryDirectory() as tmp:
+        for n in (1, 2, 3, 4, 5):
+            r = render_offline.run_config(n, "blocked", tmp)
+            check(r["peak"] > 0 and np.isfinite(r["peak"])
+                  and os.path.getsize(r["wav"]) > 44, f"config {n}: {r}")
+            r.pop("wav")
+            report.append(r)
+    out["render_offline"] = report
+    print("offline apps:", json.dumps(out, default=float), flush=True)
+    return out, counts
+
+
+def phase_served(dirs, scene, modes, seed) -> dict:
+    """Phase 9; returns its launches per kernel."""
+    import torch
+    launches = dict.fromkeys(KERNELS, 0)
+    with tempfile.TemporaryDirectory() as root:
+        web_json, metas = write_served_scene(root, dirs, "web.json")
+        mono_json, _ = write_served_scene(root, dirs, "mono.json")
+        web, counts = phase_served_web(web_json)
+        for name in KERNELS:
+            launches[name] += counts[name]
+        torch.cuda.empty_cache()
+        mono, counts = phase_served_mono(mono_json, metas)
+        for name in KERNELS:
+            launches[name] += counts[name]
+        torch.cuda.empty_cache()
+    offline, counts = phase_offline_apps(scene, modes, seed)
+    for name in KERNELS:
+        launches[name] += counts[name]
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip()
+    print("served timings:", json.dumps({
+        "card": smi,
+        "web_unpaced": {k: web["unpaced_stats"][k] for k in (
+            "p50_ms", "p95_ms", "p99_ms", "max_ms")},
+        "web_missed_unpaced": web["unpaced_missed"],
+        "grow_s": web["grow"][0]["seconds"],
+        "first_block_ms_after_connect": [c["first_block_ms"]
+                                         for c in web["clients"]],
+        "grow_blocks": {k: web["grow"][0][f"blocks_{k}"]
+                        for k in ("during", "after")},
+        "web_paced_hud_off_before": web["paced_hud_off_before"],
+        "web_paced_hud_on": web["paced_hud_on"],
+        "web_paced_hud_x10": web["paced_hud_x10"],
+        "web_paced_hud_off": web["paced_hud_off"],
+        "mono": {k: mono["stream_stats"][k] for k in (
+            "p50_ms", "p95_ms", "p99_ms", "max_ms")},
+        "load_model_s": mono["load_model_s"],
+        "bake_s": {k: offline[k]["bake_s"] for k in ("keyframes",
+                                                      "fixed")},
+        "launches": launches}, default=float), flush=True)
+    return launches
+
+
 def kernel_bounds(hetero_modes_padded, shared_modes_padded, n_chunks,
                   chunk):
     """Each kernel's bound (bench/roofline.py) at the shape its JSON entry
@@ -2575,7 +3570,7 @@ def phase_clock(name, seconds):
 
 
 def run_phases(args, model_pool, model_futures) -> int:
-    """Phases 3-8, the bounds and the closing lines."""
+    """Phases 3-9, the bounds and the closing lines."""
     import torch
     seconds = {}
     dev = torch.device("cuda")
@@ -2624,13 +3619,17 @@ def run_phases(args, model_pool, model_futures) -> int:
         live_launches = phase_live(per_block, modes[0], rng)
     with phase_clock("8", seconds):
         spatial_launches = phase_spatial(model_dirs, args.seed)
+    with phase_clock("9", seconds):
+        served_launches = phase_served(model_dirs, per_block, modes,
+                                       args.seed + 9)
 
     head = span_cases[SPAN_CASES[0][0]]
     bounds = kernel_bounds(hetero.num_modes, shared.num_modes,
                            head["n_chunks"], head["chunk"])
     # launches: each kernel's count on its render's path (phases 4, 5b,
-    # 6c) plus the engine streams' (7d) and the spatial path's (8b, 8c,
-    # 8e, 8f), each read around its own run
+    # 6c) plus the engine streams' (7d), the spatial path's (8b, 8c, 8e,
+    # 8f) and the served path's (9a-9b's streams, 9c's bakes), each read
+    # around its own run
     kernels = [dict(name="fused_block", launches=per_block["launches"],
                     max_abs_err=prod["max_abs_err"], ms=prod["kernel_ms"],
                     device_ms=prod["device_ms"], plain_ms=prod["plain_ms"],
@@ -2648,7 +3647,8 @@ def run_phases(args, model_pool, model_futures) -> int:
                 for k, path in (("ar_noise", "span"), ("ar_block", "block"))]
     for k in kernels:
         k["launches"] += (live_launches[k["name"]]
-                          + spatial_launches[k["name"]])
+                          + spatial_launches[k["name"]]
+                          + served_launches[k["name"]])
         k.update(route="cuda", source=KERNELS[k["name"]][0],
                  replaces=KERNELS[k["name"]][1],
                  bound_ms=bounds[k["name"]]["bound_ms"],

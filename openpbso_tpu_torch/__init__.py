@@ -19,7 +19,11 @@ the sustained AR(2) contact channel on both (``csrc/ar_block.cu``,
 block, per-mode energy telemetry (qnorm), a moving listener rendered
 offline, ``ModalSession.warmup``, and ``runtime.engine.StreamingEngine``
 with its sinks (``runtime.audio``), profiler (``runtime.profiling``) and
-checkpoints (``runtime.checkpoint``).
+checkpoints (``runtime.checkpoint``); the spatial path (``models.scene``,
+the Doppler and HRTF post-mixes); and the serving surface: the TCP and
+WebSocket audio servers (``runtime.server``, ``runtime.wsbridge``) and the
+command-line apps (``apps``), which run on the CUDA device unless asked
+for the CPU (``--device cpu``).
 
 Importing the package applies the float32 precision pin (``precision``).
 """

@@ -32,6 +32,10 @@ class ModeData:
     def num_dof(self) -> int:
         return int(self.modes.shape[1]) if self.modes.size else 0
 
+    @property
+    def num_vertices(self) -> int:
+        return self.num_dof // 3
+
     def frequencies_hz(self, density: float) -> np.ndarray:
         """Natural frequencies in Hz (reference ModeData.h:129-131)."""
         return np.sqrt(self.omega_squared / density) / (2.0 * math.pi)
@@ -50,6 +54,11 @@ class ModeData:
         if freqs[-1] <= audible_freq:
             return self.num_modes
         return int(np.argmax(freqs > audible_freq))
+
+    def mode_displacements(self, mode_index: int) -> np.ndarray:
+        """[V, 3] displacement vectors of one mode (the mode-shape
+        exports of apps/render_fields.py)."""
+        return self.modes[mode_index].reshape(-1, 3)
 
 
 def read_modes(path: str, dtype=np.float64) -> ModeData:

@@ -177,6 +177,7 @@ class DopplerPostMix:
         else:
             self.gains = torch.ones((o, 2) if ll == 1 else (o, ll),
                                     dtype=dtype, device=device)
+        self._carried = None    # carry_from's state, for one reset()
         self._d_cur = np.zeros(o if ll == 1 else (o, ll))
         self._d_tgt = np.zeros_like(self._d_cur)
         self.on_listener(np.zeros(3) if ll == 1 else np.zeros((ll, 3)))
@@ -211,7 +212,44 @@ class DopplerPostMix:
         self.positions[obj] = np.asarray(world_pos, np.float64)
         self.on_listener(self._last_listener)
 
+    def carry_from(self, old: "DopplerPostMix", listener: np.ndarray) -> None:
+        """Continue ``old``, a post-mix of the same objects with fewer
+        listener columns (a listener-bucket grow): its columns keep their
+        delay lines, delays and listener rows bitwise, the objects their
+        live positions and velocities; the added columns start settled at
+        ``listener``'s rows ([L, 3]) with empty delay lines. The carried
+        state, positions included, is also what the next ``reset()``
+        returns to, once: the engine's start() runs the post-mix in its
+        warmup and then resets it."""
+        o, k = self.positions.shape[0], old._nl
+        if (self._nl <= 1 or k > self._nl or old.positions.shape[0] != o
+                or old._hist.shape[-1] != self._hist.shape[-1]):
+            raise ValueError(
+                f"cannot carry a post-mix of {old.positions.shape[0]} "
+                f"objects x {k} listeners into {o} x {self._nl}")
+        self.positions[...] = old.positions
+        self.velocities[...] = old.velocities
+        self.on_listener(np.asarray(listener, np.float64).reshape(
+            self._nl, 3))
+        self._d_cur = self._d_tgt.copy()
+        self._d_cur[:, :k] = old._d_cur.reshape(o, k)
+        self._d_tgt[:, :k] = old._d_tgt.reshape(o, k)
+        self._last_listener[:k] = np.asarray(old._last_listener,
+                                             np.float64).reshape(k, 3)
+        self._hist[:, :k] = old._hist.reshape(o, k, -1)
+        self._carried = (self._hist.clone(), self._d_cur.copy(),
+                         self._d_tgt.copy(), self._last_listener.copy(),
+                         self.positions.copy())
+
     def reset(self) -> None:
+        carried, self._carried = self._carried, None
+        if carried is not None:
+            hist, d_cur, d_tgt, listener, positions = carried
+            self._hist = hist.clone()
+            self._d_cur, self._d_tgt = d_cur.copy(), d_tgt.copy()
+            self._last_listener = listener.copy()
+            self.positions[...] = positions
+            return
         self._hist = torch.zeros_like(self._hist)
         self._d_cur = self._d_tgt.copy()
 

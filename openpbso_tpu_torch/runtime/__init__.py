@@ -1,6 +1,6 @@
-"""Block solver, carried state, the host session and the streaming engine of
-the port (the post-mixes a stream may carry are ``ops.DopplerPostMix`` and
-``ops.HRTFPostMix``)."""
+"""Block solver, carried state, the host session, the streaming engine and
+the TCP/WebSocket audio servers of the port (the post-mixes a stream may
+carry are ``ops.DopplerPostMix`` and ``ops.HRTFPostMix``)."""
 from .audio import (RawCollectorSink, RealTimePacerSink, SoundDeviceSink,
                     WavFileSink)
 from .checkpoint import (load_session, load_state, save_session, save_state,

@@ -143,11 +143,14 @@ def load_session(path: str, session) -> None:
     session._xfade_from = None  # any pending smooth move predates the load
 
 
-def swap_model(engine, new_session) -> None:
+def swap_model(engine, new_session, prepare=None) -> None:
     """Hot-swap the engine's model mid-stream (LoadNewModel equivalent).
 
     Pauses synthesis, replaces the session (new bank/FFAT/state),
-    restarts. In-flight old-model blocks are DROPPED (not drained): the
+    restarts. ``prepare(old_session, new_session)``, when given, runs
+    while the stream is parked, between the old session's last block and
+    the new one's warmup (the listener-bucket grow carries the ring-down
+    there, runtime/server.py). In-flight old-model blocks are DROPPED (not drained): the
     consume loop exits on the stop flag, and replaying stale blocks from
     a different model — possibly a different block size — through the
     new stream would be worse than a short gap. The stale-replay buffer
@@ -182,6 +185,8 @@ def swap_model(engine, new_session) -> None:
     engine._arprm.take()
     engine._transfer.take()
     engine._last_block = None
+    if prepare is not None:
+        prepare(engine.session, new_session)
     engine.session = new_session
     engine.profiler = type(engine.profiler)(
         new_session.config.block_size, SAMPLE_RATE)

@@ -273,7 +273,8 @@ class ModalSession:
     def _listener_rows(self, pos: np.ndarray) -> np.ndarray:
         """A listener position as the session's relative rows: [O, 3], or
         [L, O, 3] with listeners ([3] puts every listener at one spot,
-        [L, 3] gives each its own); a shape that fits neither raises."""
+        [L, 3] gives each its own; a single listener also takes its one
+        row, [1, 3] or [1, O, 3]); a shape that fits neither raises."""
         o, nl = self.bank.num_objects, self.num_listeners
         if nl > 1:
             if pos.shape == (3,):
@@ -285,8 +286,12 @@ class ModalSession:
                     f"expected a [3], [{nl}, 3] or [{nl}, {o}, 3] listener "
                     f"position, got {pos.shape}")
             return pos
-        if pos.shape == (3,):
-            return np.broadcast_to(pos, (o, 3))
+        # one listener row, [1, 3] or [1, O, 3] (a per-client bucket of
+        # one), is that listener's position, as the JAX package reads it
+        if pos.shape == (1, o, 3):
+            pos = pos[0]
+        if pos.shape in ((3,), (1, 3)):
+            return np.broadcast_to(pos.reshape(3), (o, 3))
         if pos.shape != (o, 3):
             raise ValueError(f"expected a [3] or [{o}, 3] listener "
                              f"position, got {pos.shape}")

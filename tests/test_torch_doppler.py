@@ -204,6 +204,63 @@ def test_per_client_lines_equal_single_listener_lines():
                                    atol=1e-6 * np.abs(ref).max())
 
 
+@pytest.mark.parametrize("k", [1, 2])
+def test_carry_from_continues_the_old_columns(k):
+    """A listener-bucket grow (k -> 4 columns): the grown post-mix carries
+    the old columns' delay lines, delays (a retarget not yet ramped too),
+    rows, positions and velocities, and its first reset() returns to that
+    state, once. Its old columns then go on as the old post-mix would;
+    the added ones as a fresh post-mix settled at their rows."""
+    rng = np.random.default_rng(11)
+    o, ll, s = 3, 4, 128
+    positions = rng.uniform(-2.0, 2.0, (o, 3))
+    gains = rng.uniform(0.5, 1.5, (o, ll))
+    rows = rng.uniform(-1.0, 1.0, (ll, 3))
+    old = td.DopplerPostMix(positions, num_listeners=k,
+                            gains=gains[:, :k] if k > 1 else None,
+                            max_distance=10.0, device="cpu")
+    old.on_listener(rows[:k] if k > 1 else rows[0])
+    old.set_velocity(1, [3.0, 0.0, 0.0])
+    for _ in range(3):
+        old.process_span(_t(rng.standard_normal(
+            (o, k, s) if k > 1 else (o, s)).astype(np.float32)))
+    old.on_listener(rows[:k] + 0.2 if k > 1 else rows[0] + 0.2)
+    new = td.DopplerPostMix(positions, num_listeners=ll, gains=gains,
+                            max_distance=10.0, device="cpu")
+    new.carry_from(old, rows)
+    new.process_span(_t(rng.standard_normal((o, ll, s)).astype(np.float32)))
+    new.reset()                          # start()'s reset after its warmup
+    assert torch.equal(new._hist[:, :k], old._hist.reshape(o, k, -1))
+    assert not new._hist[:, k:].any()
+    np.testing.assert_array_equal(new._d_cur[:, :k],
+                                  old._d_cur.reshape(o, k))
+    np.testing.assert_array_equal(new._d_tgt[:, :k],
+                                  old._d_tgt.reshape(o, k))
+    np.testing.assert_array_equal(new.positions, old.positions)
+    np.testing.assert_array_equal(new.velocities, old.velocities)
+    sound = rng.standard_normal((o, ll, 2 * s)).astype(np.float32)
+    got = new.process_span(_t(sound)).numpy()
+    if k > 1:
+        ref = old.process_span(_t(sound[:, :k])).numpy()
+        np.testing.assert_allclose(got[:, :k], ref, rtol=0,
+                                   atol=1e-6 * np.abs(ref).max())
+    fresh = td.DopplerPostMix(positions, num_listeners=ll - k,
+                              gains=gains[:, k:], max_distance=10.0,
+                              device="cpu")
+    fresh.positions[...] = old.positions
+    fresh.on_listener(rows[k:])
+    fresh.reset()
+    fresh.velocities[...] = old.velocities
+    ref = fresh.process_span(_t(sound[:, k:])).numpy()
+    np.testing.assert_allclose(got[:, k:], ref, rtol=0,
+                               atol=1e-6 * np.abs(ref).max())
+    new.reset()                          # the carried state only once
+    assert not new._hist.any()
+    with pytest.raises(ValueError, match="cannot carry"):
+        td.DopplerPostMix(positions[:2], num_listeners=ll,
+                          device="cpu").carry_from(old, rows)
+
+
 def _tone_session(f0=1000.0, block=512, alpha=1e-2, beta=1e-7, nl=1):
     density = 2700.0
     omega = 2 * np.pi * f0

@@ -232,8 +232,12 @@ def test_stream_exercises_all_step_variants():
     sink = RawCollectorSink()
     eng = StreamingEngine(sess, sink, qnorm_every=4)
     produced = _tap(eng)
+    # the warmup's counts as it returns: the synthesis thread may step
+    # before start() itself returns
+    warmup, warmed = sess.warmup, []
+    sess.warmup = lambda **kw: (warmup(**kw), warmed.append(dict(calls)))[0]
     eng.start()
-    warm = dict(calls)
+    warm, = warmed
     try:
         eng.hit(0, np.ones(12), kind="point")              # full step
         assert _wait(lambda: calls["decay"] > warm["decay"] + 4)
@@ -438,11 +442,15 @@ def test_post_mix_hooks(span):
     inner = sess._step_span_sound
     sess._step_span_sound = lambda n, **kw: (spans.append(n),
                                              inner(n, **kw))[1]
+    # count the warmup's spans as it returns: the synthesis thread may
+    # dispatch its stream spans before start() itself returns
+    warmup, warmed = sess.warmup, []
+    sess.warmup = lambda **kw: (warmup(**kw), warmed.append(len(spans)))[0]
     engine.hit(0, np.ones(16), kind="gaussian", width_us=500.0)
     engine.set_listener(np.array([1.0, 2.0, 3.0]))
     engine.start()
     assert pm.resets == 1               # after warmup, before the stream
-    warm = len(spans)
+    warm, = warmed
     assert _wait(lambda: len(produced) >= 6)
     engine.stop()
     assert engine.error is None and pm.calls >= 6

@@ -11,6 +11,9 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 _RENDER_WITHOUT_JAX = r"""
 import importlib, pkgutil, sys
+APPS = ("assemble_movie", "fetch_dataset", "real_time_modal_sound",
+        "render_fields", "render_offline", "render_timeline", "serve",
+        "softrender")
 import numpy as np
 import openpbso_tpu_torch as pkg
 names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
@@ -35,7 +38,8 @@ from openpbso_tpu_torch.runtime import (RawCollectorSink, StreamingEngine,
 from openpbso_tpu_torch.runtime.profiling import device_trace
 for required in ("runtime.audio", "runtime.checkpoint", "runtime.engine",
                  "runtime.profiling", "models.scene", "ops.doppler",
-                 "ops.hrtf", "ops.ffat_fit"):
+                 "ops.hrtf", "ops.ffat_fit", "runtime.server",
+                 "runtime.wsbridge") + tuple("apps." + a for a in APPS):
     assert "openpbso_tpu_torch." + required in names, required
 engine = StreamingEngine(sess, RawCollectorSink(), qnorm_every=2)
 engine.hit(0, np.ones(16))
@@ -52,6 +56,42 @@ with tempfile.TemporaryDirectory() as tmp:
         sess.warmup()
 print(len(names), "jax" in sys.modules, reference_modules())
 """
+
+_SERVING_WITHOUT_JAX = r"""
+import json, threading, time
+import numpy as np
+from openpbso_tpu_torch.apps import serve
+from openpbso_tpu_torch.runtime.server import AudioClient
+srv = serve.build_server(serve.parse_args([
+    "--demo-synth", "--multi-client", "--per-client-listeners", "1,2",
+    "--device", "cpu", "--port", "0", "--block", "128"]))
+t = threading.Thread(target=srv.serve_forever, daemon=True)
+t.start()
+a = AudioClient(*srv.address)
+a.send(cmd="hit", obj=0, vertex=3, kind="gaussian", width_us=800.0)
+peak = 0.0
+for _ in range(2000):
+    peak = max(peak, float(np.abs(a.read_block()).max()))
+    if peak > 0:
+        break
+b = AudioClient(*srv.address)        # grows the listener bucket to 2
+deadline = time.time() + 120
+while not srv.grows and time.time() < deadline:
+    b.read_block()
+assert peak > 0 and srv.grows and srv.grows[0]["carried"], srv.grows
+a.close(); b.close(); srv.close(); t.join(60)
+print("jax" in sys.modules, reference_modules())
+"""
+
+_IMPORT_ONE = r"""
+import importlib
+importlib.import_module(MODULE)
+print("jax" in sys.modules, reference_modules())
+"""
+
+APPS = ("assemble_movie", "fetch_dataset", "real_time_modal_sound",
+        "render_fields", "render_offline", "render_timeline", "serve",
+        "softrender")
 
 _SPATIAL_WITHOUT_JAX = r"""
 import tempfile, time
@@ -147,6 +187,32 @@ def test_spatial_path_runs_without_jax():
         [sys.executable, "-c", _DEF_REFERENCE_MODULES
          + _SPATIAL_WITHOUT_JAX], capture_output=True, text=True, env=_env(),
         cwd=ROOT, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.split() == ["False", "none"]
+
+
+def test_serving_surface_runs_without_jax():
+    """apps/serve.py builds a per-client broadcast server on the CPU; a
+    client hits, a second grows the listener bucket with the state
+    carried; neither jax nor openpbso_tpu is loaded."""
+    proc = subprocess.run(
+        [sys.executable, "-c", _DEF_REFERENCE_MODULES
+         + _SERVING_WITHOUT_JAX], capture_output=True, text=True,
+        env=_env(), cwd=ROOT, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.split()[-2:] == ["False", "none"]
+
+
+@pytest.mark.parametrize("module", ["runtime.server", "runtime.wsbridge"]
+                         + ["apps." + a for a in APPS])
+def test_serving_module_imports_alone(module):
+    """Each serving module and app imports on its own, without a GPU,
+    loading neither jax nor openpbso_tpu (the apps import torch lazily)."""
+    name = "openpbso_tpu_torch." + module
+    proc = subprocess.run(
+        [sys.executable, "-c", _DEF_REFERENCE_MODULES
+         + f"MODULE = {name!r}\n" + _IMPORT_ONE], capture_output=True,
+        text=True, env=_env(), cwd=ROOT, timeout=300)
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.split() == ["False", "none"]
 
