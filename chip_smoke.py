@@ -138,7 +138,43 @@ Phases, in order; any failure raises and the script exits non-zero:
    same script (<= -90 dB before the drag, <= -60 dB with it), and
    render_offline's configs 1-5 with their report. Phase 9's launches in
    the kernels line are the served streams' own (less each start() and
-   the first step of a session built beside them) and the bakes'.
+   the first step of a session built beside them) and the bakes';
+10. the multi-device session (parallel/): ShardedSession on (obj, mode)
+   meshes (2, 1), (1, 2) and (2, 2), each of distinct cards where the
+   machine has them, else every cell on cuda:0 (printed). (a) phase 4's
+   scene per block: hits, four drags, a smooth listener move, then the
+   ring-down through the decay step, against the unsharded session (<=
+   -90 dB before the first drag, <= -60 dB with it; ar_block launched by
+   every shard, and on (2, 2) held bitwise against its twin on one
+   shard's inputs of the first drag block), each card's memory held by
+   the session (one bank's shards and the state: the whole bank is not
+   kept) and its peak; (b) render_multi (16-block spans, C = 512) of phase 4's
+   scene and of a shared 256x1024 bank against the unsharded render (<=
+   -90 dB), chunk_scan and toeplitz_conv launched shards x dispatches,
+   exactly one cross-shard reduction a dispatch; on (2, 2) the span
+   kernels against their twins on one shard's inputs of the first busy
+   dispatch (chunk_scan bitwise, toeplitz_conv <= -110 dB and
+   repeatable) and one full span dispatch timed unsharded and sharded, A
+   B B A (on one card this is the layout's cost, not a speed-up; where
+   the mesh has cards of its own, the same mesh with every cell on
+   cuda:0 is timed beside them, A B C C B A); (c) drags on 32 objects by
+   span on (2, 2): every shard's ar_noise bits bitwise the unsharded rows
+   of its objects, and one shard's ar_noise against its threefry twin on
+   that shard's inputs (bits bitwise, normals <= -120 dB), the mix <= -60
+   dB; (d)
+   StreamingEngine over the (2, 2) session at lookahead 2, ~200 unpaced
+   blocks of 7d's events: the first 20 blocks against an offline render
+   (<= -90 dB), launches against the dispatch log and the recorded events
+   (times the shards), p50/p99; (e) Scene(mesh=...) on (2, 2), binaural
+   with ITD on phase 8's models, against the same Scene without a mesh,
+   per block and by render_multi (<= -90 dB); (f) save_session of a (2,
+   2) session mid-drag and load_session into a fresh one: the next 16
+   blocks bitwise;
+11. ml/ on the card: synthesize_dataset of the six materials, 256 objects
+   x 1024 modes each (a hetero bank stepped through fused_block; its
+   launches counted), 2 hits and 0.5 s; one material against the blocked
+   form (<= -90 dB); features_matrix of every clip (seconds printed); the
+   study where sklearn is installed, else its error printed.
 
 Every timed kernel also gets its device time: the torch.profiler duration
 of one launch, median over 30 calls (CUDA events time the host's enqueue
@@ -199,6 +235,16 @@ SERVED_COMPARED = 120        # 9a's blocks held against the offline replay
 SERVED_PACED_SECONDS = 3.0   # 9a paced with the HUD on (then 2 s off)
 MONO_BLOCKS = 100            # 9b: blocks each client reads
 BAKE_BLOCKS = 96             # 9c's timeline
+MESHES = ((2, 1), (1, 2), (2, 2))   # phase 10's (obj, mode) meshes
+MESH_BLOCKS = 64             # 10a: blocks of events, then a ring-down of
+MESH_RINGDOWN = 16           # this many blocks (the decay step)
+MESH_HIT_LAST = 40           # 10a takes phase 4's hits up to this block
+MESH_DRAGS = (16, 48)        # 10a: four drags start and end at these blocks
+MESH_MOVE = 28               # 10a: the smooth listener move
+MESH_SUSTAINED_BLOCKS = 32   # 10c: two 16-block spans with drags
+DATASET_OBJECTS = 256        # phase 11: objects per material (M modes)
+DATASET_HITS = 2             # batches (one hit each object) per material
+DATASET_SECONDS = 0.5
 TOEPLITZ_DB = -110.0         # the 3xTF32 conv against its FP32 twin
 FUSED_DB = -110.0            # the 3xTF32 fused step against its FP32 twin
 TOEPLITZ_SHAPES = (   # the span's short chunks: label, (O, L, K, X, C)
@@ -1274,7 +1320,10 @@ def fused_rows(sess) -> bool:
     """Whether the session's full blocks launch fused_block: the backend
     the solver picks for its rows (solver.block_backend; listener and
     complex rows take the blocked form)."""
+    from openpbso_tpu_torch.ops.integrator import resolve_backend_name
     from openpbso_tpu_torch.runtime.solver import block_backend
+    if resolve_backend_name(sess.config.backend, sess.bank) != "fused":
+        return False      # no rows take the kernel (a mesh: blocked)
     return block_backend(sess.state, sess.config.backend,
                          sess.bank) == "fused"
 
@@ -1471,13 +1520,16 @@ def stats_dict(engine) -> dict:
     return out
 
 
-def engine_stream(label, scene, lam64, lookahead, rng) -> dict:
-    """One unpaced engine stream of phase 7d; returns its produced audio,
-    launch counts and statistics."""
+def engine_stream(label, scene, lam64, lookahead, rng, session=None,
+                  shards=1) -> dict:
+    """One unpaced engine stream of phase 7d (or 10d: ``session`` a
+    ShardedSession over phase 4's scene, whose ``shards`` each launch
+    their own kernels); returns its produced audio, launch counts and
+    statistics."""
     import torch
     from openpbso_tpu_torch.runtime.audio import RawCollectorSink
     from openpbso_tpu_torch.runtime.engine import StreamingEngine
-    sess = live_session(scene, lam64=lam64)
+    sess = session or live_session(scene, lam64=lam64)
     log = dispatch_log(sess)
     warmed = {}
     warmup = sess.warmup
@@ -1530,7 +1582,7 @@ def engine_stream(label, scene, lam64, lookahead, rng) -> dict:
     warm_s = time.perf_counter() - t
 
     check(engine.error is None, f"{label}: engine error {engine.error!r}")
-    want = expected_launches(run_log)
+    want = {k: v * shards for k, v in expected_launches(run_log).items()}
     check(counts == want, f"{label}: launches {counts} != {want} reckoned "
           "from the dispatch log")
     # the stream's own launches against the event record: of the
@@ -1541,6 +1593,7 @@ def engine_stream(label, scene, lam64, lookahead, rng) -> dict:
     reckoned, kinds = reckon_launches(engine.recorded, sizes,
                                       lam64 is not None, moved=True,
                                       fused=fused_rows(sess))
+    reckoned = {k: v * shards for k, v in reckoned.items()}
     check(streamed == reckoned, f"{label}: the stream launched {streamed}, "
           f"its events and block counts give {reckoned} ({kinds})")
     check(sum(sizes) == len(produced) >= ENGINE_BLOCKS
@@ -1838,10 +1891,11 @@ def start_scene_models(root, seed):
     return pool, futures
 
 
-def scene_instances(dirs):
+def scene_instances(dirs, compress=True):
     """Phase 8's instances: the models loaded from their directories, O
     instances cycling through them on a square grid, and each model's
-    compressed maps (compress_map, uint8 quantisation)."""
+    compressed maps (compress_map, uint8 quantisation; None without
+    ``compress``)."""
     from openpbso_tpu_torch.io.meta import resolve_model_dir
     from openpbso_tpu_torch.models import SceneInstance, load_model
     from openpbso_tpu_torch.ops.ffat_fit import compress_map
@@ -1858,11 +1912,12 @@ def scene_instances(dirs):
     instances = [SceneInstance(models[i % len(models)],
                                np.array([xy[i, 0], xy[i, 1], 0.0]),
                                gain=1.0 + 0.1 * (i % 3)) for i in range(O)]
-    compressed = {id(mdl): {k: compress_map(v, jpeg_quality=None)
-                            for k, v in mdl.ffat_maps.items()}
-                  for mdl in models}
-    print(f"scene models: {len(models)} loaded and compressed in "
-          f"{time.perf_counter() - t} s", flush=True)
+    compressed = None if not compress else {
+        id(mdl): {k: compress_map(v, jpeg_quality=None)
+                  for k, v in mdl.ffat_maps.items()} for mdl in models}
+    print(f"scene models: {len(models)} loaded"
+          + (" and compressed" if compress else "")
+          + f" in {time.perf_counter() - t} s", flush=True)
     return instances, compressed
 
 
@@ -3528,6 +3583,587 @@ def phase_served(dirs, scene, modes, seed) -> dict:
     return launches
 
 
+def mesh_of(shape, one_card=False):
+    """A mesh of the given shape: distinct cards where the machine has as
+    many as it needs (and ``one_card`` is not asked), else every cell on
+    cuda:0 (printed either way)."""
+    import torch
+    from openpbso_tpu_torch.parallel import make_mesh
+    n = shape[0] * shape[1]
+    cards = torch.cuda.device_count()
+    distinct = cards >= n and not one_card
+    print(f"mesh {shape}: " + ("distinct cards" if distinct else
+                               f"every cell on cuda:0 ({cards} card(s))"),
+          flush=True)
+    return make_mesh(*shape, devices=[f"cuda:{k}" for k in range(n)]
+                     if distinct else ["cuda:0"] * n)
+
+
+def sync_cards():
+    import torch
+    for k in range(torch.cuda.device_count()):
+        torch.cuda.synchronize(k)
+
+
+def mesh_session(bank, shape, ffat=None, lam64=None, smooth=False,
+                 tables_from=None, one_card=False):
+    """A ShardedSession on mesh_of(shape, one_card). ``tables_from``: a
+    session whose span tables this one shards instead of building its own
+    (a hetero bank's host float64 build takes seconds)."""
+    from openpbso_tpu_torch.parallel import ShardedSession
+    from openpbso_tpu_torch.runtime.solver import SolverConfig
+    sess = ShardedSession(bank, mesh_of(shape, one_card), ffat=ffat,
+                          config=SolverConfig(block_size=S,
+                                              backend="blocked",
+                                              smooth_transfer=smooth),
+                          lam64=lam64)
+    if tables_from is not None:
+        sess._span_cache.update(tables_from._span_cache)
+    return sess
+
+
+def mesh_per_block(sess, scene, spaces):
+    """10a's script on ``sess`` block by block: phase 4's hits up to
+    MESH_HIT_LAST, four drags, one listener move, then the ring-down.
+    Returns the mix."""
+    dragged = list(range(3, O, O // 4))[:4]
+    sess.set_listener(scene["listeners"])
+    for h in scene["hits"]:
+        if h["when"] is None or h["when"] <= MESH_HIT_LAST * S:
+            sess.hit(h["obj"], h["space"], kind=h["kind"],
+                     width_us=h["width_us"], amp=h["amp"], when=h["when"])
+    out = []
+    for b in range(MESH_BLOCKS + MESH_RINGDOWN):
+        if b == MESH_DRAGS[0]:
+            for o, v in zip(dragged, spaces):
+                sess.sustained_start(o, v)
+        if b == MESH_MOVE:
+            sess.set_listener(scene["listeners"] * 1.1 + 0.2)
+        if b == MESH_DRAGS[1]:
+            for o in dragged:
+                sess.sustained_end(o)
+        out.append(sess.step()[1].cpu().numpy())
+    return np.concatenate(out)
+
+
+def nbytes(tree) -> int:
+    """Bytes of every tensor in a dataclass tree or a grid of them."""
+    import dataclasses
+    import torch
+    if isinstance(tree, list):
+        return sum(nbytes(x) for x in tree)
+    if isinstance(tree, torch.Tensor):
+        return tree.numel() * tree.element_size()
+    if dataclasses.is_dataclass(tree):
+        return sum(nbytes(getattr(tree, f.name))
+                   for f in dataclasses.fields(tree) if f.init)
+    return 0
+
+
+def card_bytes(peak=False) -> list:
+    import torch
+    read = (torch.cuda.max_memory_allocated if peak
+            else torch.cuda.memory_allocated)
+    return [read(k) for k in range(torch.cuda.device_count())]
+
+
+def check_ar_block_on_shard(args) -> dict:
+    """ar_block against its twin on one shard's captured inputs: bitwise
+    given the kernel's own normals."""
+    import torch
+    from openpbso_tpu_torch.ops import ar_block as kb
+    from openpbso_tpu_torch.ops import ar_noise as ka
+    check(args[0].shape[0] == O // 2,
+          f"captured ar_block on {args[0].shape[0]} objects, not a shard's")
+    idx, _ = ka.block_counter(args[6], S)
+    got = kb.ar_block(*args)
+    given = kb.ar_block_reference(*args[:6], idx, S, noise=ka.ar_noise(
+        args[0], args[6], 1, S)[:, 0])
+    torch.cuda.synchronize()
+    check(all(torch.equal(k, g) for k, g in zip(got, given)),
+          "10a: ar_block differs from its twin on a shard's inputs")
+    return {"objects": args[0].shape[0], "active": int(args[5].sum()),
+            "block_start": args[6], "bitwise_vs_plain": True}
+
+
+def phase_mesh_blocks(scene, shapes) -> dict:
+    """10a: the per-block path on each mesh against the unsharded session
+    (the blocked form, smooth listener moves); the memory each session
+    holds on each card; on (2, 2) ar_block against its twin on one
+    shard's inputs."""
+    import gc
+    import torch
+    from openpbso_tpu_torch.runtime.session import ModalSession
+    from openpbso_tpu_torch.runtime.solver import SolverConfig
+    spaces = np.random.default_rng(10).standard_normal((4, M))
+    bank_bytes = nbytes(scene["bank"])
+    ref = mesh_per_block(ModalSession(scene["bank"], scene["ffat"],
+                                      SolverConfig(block_size=S,
+                                                   backend="blocked",
+                                                   smooth_transfer=True)),
+                         scene, spaces)
+    cut = MESH_DRAGS[0] * S
+    out, launches = {}, dict.fromkeys(KERNELS, 0)
+    for shape in shapes:
+        shards = shape[0] * shape[1]
+        gc.collect()    # the last mesh's session (dispatch_log's cycle)
+        sync_cards()
+        before = card_bytes()
+        for k in range(len(before)):
+            torch.cuda.reset_peak_memory_stats(k)
+        sess = mesh_session(scene["bank"], shape, ffat=scene["ffat"],
+                            smooth=True)
+        sync_cards()
+        held = [a - b for a, b in zip(card_bytes(), before)]
+        shard_bytes = nbytes(sess._banks) + nbytes(sess._shards)
+        # the session holds the bank's shards and the state, not a second
+        # whole bank (allocator rounding and small tensors within 16 MiB)
+        check(sum(held) <= shard_bytes + (16 << 20),
+              f"10a {shape}: the session holds {sum(held)} bytes on the "
+              f"cards, its shards {shard_bytes} (bank {bank_bytes})")
+        log = dispatch_log(sess)
+        capture = shape == (2, 2)
+        with (capture_ar_kernel_inputs() if capture
+              else contextlib.nullcontext({})) as captured:
+            reset_launches()
+            t = time.perf_counter()
+            mix = mesh_per_block(sess, scene, spaces)
+            seconds = time.perf_counter() - t
+            counts = read_launches()
+        sync_cards()
+        peak = [a - b for a, b in zip(card_bytes(peak=True), before)]
+        kinds = [k for k, *_ in log]
+        drag_blocks = MESH_DRAGS[1] - MESH_DRAGS[0]
+        want = dict.fromkeys(KERNELS, 0)
+        want["ar_block"] = shards * drag_blocks
+        check(counts == want, f"10a {shape}: launches {counts} != {want}")
+        check(kinds[-MESH_RINGDOWN:] == ["decay"] * MESH_RINGDOWN
+              and kinds.count("xfade") == 2,
+              f"10a {shape}: dispatches {kinds}")
+        check(bool(np.isfinite(mix).all()) and float(np.abs(mix).max()) > 0,
+              f"10a {shape}: mix not finite or silent")
+        res = {"db_before_drags": db_error(mix[:cut], ref[:cut]),
+               "db_with_drags": db_error(mix[cut:], ref[cut:]),
+               "ms_per_block_mean": 1e3 * seconds / len(kinds),
+               "launches": counts, "bank_bytes": bank_bytes,
+               "shard_bytes": shard_bytes, "held_bytes_per_card": held,
+               "peak_bytes_per_card": peak}
+        if capture:
+            res["ar_block_on_shard_inputs"] = check_ar_block_on_shard(
+                captured["ar_block"])
+        check(res["db_before_drags"] <= -90.0 and res["db_with_drags"]
+              <= -60.0, f"10a {shape}: {res}")
+        out[str(shape)] = res
+        for k in KERNELS:
+            launches[k] += counts[k]
+        del sess, log
+    print("mesh per block:", json.dumps(out), flush=True)
+    return launches
+
+
+def span_ab(ref_sess, sess, bank, solo=None) -> dict:
+    """One full 16-block span dispatch on the same inputs, unsharded (A)
+    and sharded (B), in the order A B B A, or with ``solo`` (the same
+    mesh with every cell on cuda:0, C) A B C C B A: a gaussian hit
+    planted on every object, the one-slot bucket. Host clock around each
+    dispatch, every card synchronised; median of 7 after 2 warm calls."""
+    from openpbso_tpu_torch.ops.forces import FORCE_GAUSSIAN
+    from openpbso_tpu_torch.parallel.sharding import shard_state
+    from openpbso_tpu_torch.runtime.solver import default_gains, step_span
+    from openpbso_tpu_torch.runtime.state import make_solver_state
+    import torch
+    m = bank.num_modes
+    state = make_solver_state(O, m, num_slots=8, device=bank.device)
+    state.slots.ftype[:, 0] = FORCE_GAUSSIAN
+    state.slots.width[:, 0] = 40.0
+    state.slots.space[:, 0] = torch.randn(
+        (O, m), generator=torch.Generator(device=bank.device).manual_seed(5),
+        device=bank.device)
+    gains = default_gains(O, device=bank.device)
+    tables = ref_sess.span_tables_for(SPAN_DISPATCH)
+
+    def unsharded():
+        return step_span(state, bank, tables, gains, n_blocks=SPAN_DISPATCH,
+                         block_size=S, num_slots=1)[1]
+
+    def dispatch(s):
+        grid = s._span_tables_sharded(SPAN_DISPATCH)
+        shards = shard_state(s.mesh, state)
+        fn = s._fn("span", n_blocks=SPAN_DISPATCH, num_slots=1, decay=False)
+        return lambda: fn(shards, s._banks, grid, gains)[1]
+    sharded = dispatch(sess)
+
+    def wall(f, runs=7):
+        times = []
+        for i in range(runs + 2):
+            sync_cards()
+            t = time.perf_counter()
+            f()
+            sync_cards()
+            if i >= 2:
+                times.append(1e3 * (time.perf_counter() - t))
+        return statistics.median(times)
+    want = unsharded().cpu().numpy()
+    check(db_error(sharded().cpu().numpy(), want) <= -90.0,
+          "the timed span dispatches disagree")
+    if solo is None:
+        a1, b1, b2, a2 = wall(unsharded), wall(sharded), wall(sharded), \
+            wall(unsharded)
+        return {"unsharded_ms": [a1, a2], "sharded_ms": [b1, b2]}
+    one_card = dispatch(solo)
+    check(db_error(one_card().cpu().numpy(), want) <= -90.0,
+          "the timed one-card span dispatch disagrees")
+    a1, b1, c1, c2, b2, a2 = (wall(f) for f in (
+        unsharded, sharded, one_card, one_card, sharded, unsharded))
+    return {"unsharded_ms": [a1, a2], "sharded_ms": [b1, b2],
+            "one_card_ms": [c1, c2]}
+
+
+def phase_mesh_spans(scene, lam64, shared, shared_lam, shapes,
+                     tables) -> dict:
+    """10b: render_multi (16-block spans, C = 512) on each mesh against the
+    unsharded render, hetero (phase 4's scene) and shared; launches
+    shards x dispatches, one reduction a dispatch; on (2, 2) the span
+    kernels against their twins on one shard's inputs of the first busy
+    dispatch; one span dispatch timed A B B A. ``tables``: the hetero
+    bank's span tables by chunk, shared with 10c (filled here)."""
+    import torch
+    from openpbso_tpu_torch.ops import chunk_scan as k1
+    from openpbso_tpu_torch.parallel import sharding
+    rng = np.random.default_rng(11)
+    cases = {
+        "hetero": (scene["bank"], lam64, scene["ffat"], scene["hits"]),
+        "shared": (shared, shared_lam, None, hit_script(rng, O, M, S))}
+    n_dispatch = math.ceil(RENDER_BLOCKS / SPAN_DISPATCH)
+    out, launches = {}, dict.fromkeys(KERNELS, 0)
+    for label, (bank, lam, ffat, hits) in cases.items():
+        ref_sess = new_session(bank, ffat, scene["listeners"], hits,
+                               "blocked", lam64=lam)
+        if label == "hetero":
+            ref_sess._span_cache = tables
+        reset_launches()
+        ref = ref_sess.render_multi(RENDER_BLOCKS,
+                                    blocks_per_dispatch=SPAN_DISPATCH)
+        ref_counts = read_launches()
+        check(ref_counts["chunk_scan"] == n_dispatch
+              and 0 < ref_counts["toeplitz_conv"] < n_dispatch,
+              f"10b {label}: unsharded launches {ref_counts}")
+        for shape in shapes:
+            shards = shape[0] * shape[1]
+            sess = mesh_session(bank, shape, ffat=ffat, lam64=lam,
+                                tables_from=ref_sess)
+            sess.set_listener(scene["listeners"])
+            for h in hits:
+                sess.hit(h["obj"], h["space"], kind=h["kind"],
+                         width_us=h["width_us"], amp=h["amp"],
+                         when=h["when"])
+            capture = label == "hetero" and shape == (2, 2)
+            with (capture_span_kernel_inputs() if capture
+                  else contextlib.nullcontext({})) as captured:
+                reset_launches()
+                sharding.REDUCTIONS = 0
+                mix = sess.render_multi(RENDER_BLOCKS,
+                                        blocks_per_dispatch=SPAN_DISPATCH)
+                counts = read_launches()
+                reductions = sharding.REDUCTIONS
+            want = {k: shards * ref_counts[k] for k in KERNELS}
+            check(counts == want, f"10b {label} {shape}: launches {counts} "
+                  f"!= {want}")
+            check(reductions == n_dispatch, f"10b {label} {shape}: "
+                  f"{reductions} reductions in {n_dispatch} dispatches")
+            res = {"db_vs_unsharded": db_error(mix, ref), "launches": counts,
+                   "reductions": reductions, "dispatches": n_dispatch}
+            check(res["db_vs_unsharded"] <= -90.0,
+                  f"10b {label} {shape}: {res['db_vs_unsharded']} dB")
+            if capture:
+                kern = {}
+                for kind in ("busy", "decay"):
+                    args = captured[("chunk_scan", kind)]
+                    check(args[0].shape == (O // 2, M // 2),
+                          f"captured a {tuple(args[0].shape)} shard")
+                    got, plain = (k1.chunk_scan(*args),
+                                  k1.chunk_scan_reference(*args))
+                    check(all(torch.equal(a, b) for a, b in zip(got, plain)),
+                          f"10b: chunk_scan ({kind}) not bitwise its twin")
+                    kern[f"chunk_scan_{kind}"] = "bitwise"
+                kern["toeplitz_conv_busy"] = toeplitz_case(
+                    "(2, 2) shard, first busy dispatch",
+                    *captured[("toeplitz_conv", "busy")], timed=False)
+                res["kernels_on_shard_inputs"] = kern
+                solo = (mesh_session(bank, shape, ffat=ffat, lam64=lam,
+                                     tables_from=ref_sess, one_card=True)
+                        if len(sess.devices) > 1 else None)
+                res["span_dispatch_ab"] = span_ab(ref_sess, sess, bank, solo)
+                del solo
+            out[f"{label} {shape}"] = res
+            for k in KERNELS:
+                launches[k] += counts[k]
+            del sess
+        del ref_sess
+        torch.cuda.empty_cache()
+    print("mesh spans:", json.dumps(out), flush=True)
+    return launches
+
+
+@contextlib.contextmanager
+def record_noise():
+    """While open, the arguments of every ar_noise call the forces module
+    makes, in order."""
+    from openpbso_tpu_torch.ops import forces as forces_mod
+    calls = []
+    original = forces_mod.ar_noise
+
+    def call(key, block_start, n_blocks, s):
+        calls.append((key.clone(), block_start, n_blocks, s))
+        return original(key, block_start, n_blocks, s)
+    forces_mod.ar_noise = call
+    try:
+        yield calls
+    finally:
+        forces_mod.ar_noise = original
+
+
+def phase_mesh_sustained(scene, lam64, tables) -> dict:
+    """10c: drags on 32 objects rendered by span on (2, 2): each shard's
+    ar_noise bits bitwise the unsharded session's rows for its objects,
+    the mix <= -60 dB against the unsharded render."""
+    import torch
+    from openpbso_tpu_torch.ops import ar_noise as ka
+    rng = np.random.default_rng(12)
+    dragged = list(range(1, O, O // DRAGGED))[:DRAGGED]
+    spaces = rng.standard_normal((DRAGGED, M))
+
+    def script(sess):
+        sess.set_listener(scene["listeners"])
+        for o, v in zip(dragged, spaces):
+            sess.sustained_start(o, v)
+        with record_noise() as calls:
+            mix = sess.render_multi(MESH_SUSTAINED_BLOCKS,
+                                    blocks_per_dispatch=SPAN_DISPATCH)
+        return mix, calls
+    ref_sess = new_session(scene["bank"], scene["ffat"], scene["listeners"],
+                           (), "blocked", lam64=lam64)
+    ref_sess._span_cache = tables
+    ref, ref_calls = script(ref_sess)
+    sess = mesh_session(scene["bank"], (2, 2), ffat=scene["ffat"],
+                        lam64=lam64, tables_from=ref_sess)
+    reset_launches()
+    mix, calls = script(sess)
+    counts = read_launches()
+    n_dispatch = MESH_SUSTAINED_BLOCKS // SPAN_DISPATCH
+    check(len(ref_calls) == n_dispatch and len(calls) == 4 * n_dispatch
+          and counts["ar_noise"] == 4 * n_dispatch,
+          f"10c: {len(calls)} sharded, {len(ref_calls)} unsharded ar_noise "
+          f"calls, launches {counts}")
+    per = O // 2
+    for d, (key, start, n, s) in enumerate(ref_calls):
+        whole = ka.ar_noise(key, start, n, s, bits=True)
+        for cell in range(4):
+            i = cell // 2
+            skey, sstart, sn, _ = calls[d * 4 + cell]
+            check(sstart == start and sn == n, "10c: a shard's noise window")
+            part = ka.ar_noise(skey, sstart, sn, s, bits=True)
+            check(torch.equal(part.to(whole.device),
+                              whole[i * per:(i + 1) * per]),
+                  f"10c: shard {cell} of dispatch {d}: bits differ")
+    # the kernel against its threefry twin on the first shard's inputs
+    skey, sstart, sn, _ = calls[0]
+    check(skey.shape[0] == per, f"10c: ar_noise on {skey.shape[0]} objects")
+    shard_case = noise_case(skey, sstart, sn)
+    db = db_error(mix, ref)
+    check(db <= -60.0 and float(np.abs(ref).max()) > 0,
+          f"10c: sustained span {db} dB vs unsharded")
+    out = {"dragged": DRAGGED, "blocks": MESH_SUSTAINED_BLOCKS,
+           "db_vs_unsharded": db, "noise_bits_bitwise_per_shard": True,
+           "ar_noise_on_shard_inputs": shard_case, "launches": counts}
+    print("mesh sustained span:", json.dumps(out), flush=True)
+    return counts
+
+
+def phase_mesh_engine(scene, lam64, rng) -> dict:
+    """10d: StreamingEngine over the (2, 2) ShardedSession at lookahead=2,
+    ~200 unpaced blocks of phase 7's event script; its first blocks
+    against an offline render, its launches against its recorded
+    events."""
+    scene = dict(scene, engine_hits=[dict(h, when=None)
+                                     for h in scene["hits"][:ENGINE_HITS]])
+    sess = mesh_session(scene["bank"], (2, 2), ffat=scene["ffat"],
+                        lam64=lam64, smooth=True)
+    sess.set_listener(scene["listeners"])
+    res = engine_stream("(10d) (2, 2) mesh, two-block spans", scene, lam64,
+                        2, rng, session=sess, shards=4)
+    offline = live_session(scene, hits=scene["engine_hits"]).render(
+        ENGINE_COMPARED)
+    db = db_error(res["audio"], offline)
+    check(db <= -90.0, f"10d: the mesh stream {db} dB vs offline")
+    print("mesh engine:", json.dumps({
+        "db_first_blocks_vs_offline": db, "health": res["health_before_stop"],
+        **{k: res["stats"][k] for k in ("p50_ms", "p95_ms", "p99_ms",
+                                        "max_ms")}}), flush=True)
+    return res["launches"]
+
+
+def phase_mesh_scene(dirs, seed) -> dict:
+    """10e: Scene(mesh=...) on (2, 2), binaural with ITD on phase 8's
+    models, against the same Scene without a mesh, per block and by
+    render_multi."""
+    import torch
+    from openpbso_tpu_torch.models import Scene
+    from openpbso_tpu_torch.parallel import ShardedSession
+    instances, _ = scene_instances(dirs, compress=False)
+    kw = dict(block_size=S, binaural=True, itd=True, smooth_transfer=True)
+    t = time.perf_counter()
+    meshed = Scene(instances, mesh=mesh_of((2, 2)), **kw)
+    build_s = time.perf_counter() - t
+    plain = Scene(instances, **kw)
+    check(isinstance(meshed.session, ShardedSession),
+          "Scene(mesh=) built no ShardedSession")
+    hits = scene_hits(np.random.default_rng(seed), instances)
+    later = scene_hits(np.random.default_rng(seed + 1), instances,
+                       future=False)
+    out, counts = [], {}
+    for name, sc in (("plain", plain), ("mesh", meshed)):
+        sc.set_listener(SCENE_LISTENER)
+        apply_hits(sc, hits)
+        blocks = np.concatenate([sc.session.step()[1].cpu().numpy()
+                                 for _ in range(SPATIAL_BLOCKS)])
+        apply_hits(sc, later)
+        reset_launches()
+        span = sc.render_multi(SPATIAL_BLOCKS,
+                               blocks_per_dispatch=SPAN_DISPATCH)
+        counts[name] = read_launches()
+        out.append((blocks, span))
+    check(counts["mesh"] == {k: 4 * v for k, v in counts["plain"].items()}
+          and counts["mesh"]["toeplitz_conv"] > 0,
+          f"10e: launches {counts}")
+    res = {"db_per_block": db_error(out[1][0], out[0][0]),
+           "db_render_multi": db_error(out[1][1], out[0][1]),
+           "mesh_scene_build_s": build_s, "launches": counts["mesh"]}
+    check(float(np.abs(out[0][0]).max()) > 0 and res["db_per_block"] <= -90.0
+          and res["db_render_multi"] <= -90.0, f"10e: {res}")
+    del meshed, plain
+    torch.cuda.empty_cache()
+    print("mesh scene:", json.dumps(res), flush=True)
+    return counts["mesh"]
+
+
+def phase_mesh_checkpoint(scene) -> dict:
+    """10f: save_session of a (2, 2) ShardedSession mid-drag, load_session
+    into a fresh one: the next blocks bitwise."""
+    from openpbso_tpu_torch.runtime.checkpoint import (load_session,
+                                                       save_session)
+    rng = np.random.default_rng(13)
+    sess = mesh_session(scene["bank"], (2, 2), ffat=scene["ffat"],
+                        smooth=True)
+    sess.set_listener(scene["listeners"])
+    for h in scene["hits"][:ENGINE_HITS]:
+        sess.hit(h["obj"], h["space"], kind=h["kind"],
+                 width_us=h["width_us"], amp=h["amp"])
+    dragged = list(range(2, O, O // ENGINE_DRAGGED))[:ENGINE_DRAGGED]
+    for o in dragged:
+        sess.sustained_start(o, rng.standard_normal(M))
+    sess.set_ar_params(dragged[0], a=(0.6, 0.2), sigma=0.003, mu=0.1)
+    sess.render(8)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "mesh.npz")
+        save_session(path, sess)
+        want = sess.render(CHECKPOINT_BLOCKS)
+        del sess
+        fresh = mesh_session(scene["bank"], (2, 2), ffat=scene["ffat"],
+                             smooth=True)
+        load_session(path, fresh)
+    got = fresh.render(CHECKPOINT_BLOCKS)
+    check(float(np.abs(want).max()) > 0 and np.array_equal(got, want),
+          f"10f: restored render differs: {db_error(got, want)} dB")
+    print("mesh checkpoint:", json.dumps({
+        "blocks": CHECKPOINT_BLOCKS, "bitwise": True,
+        "clock": fresh.sample_clock}), flush=True)
+    return {}
+
+
+def phase_mesh(scene, lam64, shared, shared_lam, dirs, seed) -> dict:
+    """Phase 10; returns its launches per kernel."""
+    import torch
+    rng = np.random.default_rng(seed)
+    launches = dict.fromkeys(KERNELS, 0)
+    tables = {}     # the hetero span tables, built once (host float64)
+    for counts in (phase_mesh_blocks(scene, MESHES),
+                   phase_mesh_spans(scene, lam64, shared, shared_lam,
+                                    MESHES, tables),
+                   phase_mesh_sustained(scene, lam64, tables),
+                   phase_mesh_engine(scene, lam64, rng),
+                   phase_mesh_scene(dirs, seed),
+                   phase_mesh_checkpoint(scene)):
+        for k in counts:
+            launches[k] += counts[k]
+        torch.cuda.empty_cache()
+    print("mesh launches:", json.dumps(launches), flush=True)
+    return launches
+
+
+def phase_dataset(seed) -> dict:
+    """Phase 11: ml/'s synthesize_dataset on the card, six materials of
+    DATASET_OBJECTS objects x M modes (a hetero bank each, stepped through
+    fused_block), one material against the blocked form, the features of
+    every clip, and the study where sklearn is installed."""
+    import dataclasses
+    from openpbso_tpu_torch.config import SAMPLE_RATE
+    from openpbso_tpu_torch.ml import dataset, train
+    from openpbso_tpu_torch.ops.forces import FORCE_GAUSSIAN, slot_duration
+    kw = dict(objects_per_material=DATASET_OBJECTS,
+              hits_per_object=DATASET_HITS, num_modes=M,
+              seconds=DATASET_SECONDS, block=S, seed=seed)
+    n_blocks = int(DATASET_SECONDS * SAMPLE_RATE) // S
+    reset_launches()
+    t = time.perf_counter()
+    clips = dataset.synthesize_dataset(backend="auto", **kw)
+    clips_s = time.perf_counter() - t
+    counts = read_launches()
+    mats = list(dataset.MATERIALS)
+    check(len(clips) == len(mats) * DATASET_HITS * DATASET_OBJECTS
+          and all(c.audio.shape == (n_blocks * S,) for c in clips),
+          f"phase 11: {len(clips)} clips")
+    audio = np.stack([c.audio for c in clips])
+    check(bool(np.isfinite(audio).all())
+          and bool((np.abs(audio).max(axis=1) > 0).all()),
+          "phase 11: a clip is not finite or silent")
+    # every hit is a gaussian of at most 300 us, whose slot expires inside
+    # the batch's first block: one busy block (fused_block) a batch, the
+    # rest ring down through the decay step
+    longest = slot_duration(FORCE_GAUSSIAN, int(300e-6 * SAMPLE_RATE), S)
+    check(longest <= S, f"a dataset hit lasts {longest} samples")
+    want = dict.fromkeys(KERNELS, 0)
+    want["fused_block"] = len(mats) * DATASET_HITS
+    check(counts == want, f"phase 11: launches {counts} != {want}")
+    first = mats[0]
+    blocked = dataset.synthesize_dataset(
+        materials={first: dataset.MATERIALS[first]}, backend="blocked",
+        **kw)
+    ours = np.stack([c.audio for c in clips if c.material == first])
+    db = db_error(ours, np.stack([c.audio for c in blocked]))
+    check(db <= -90.0, f"phase 11: {first} clips {db} dB vs blocked")
+    t = time.perf_counter()
+    x, y, labels = dataset.features_matrix(clips)
+    features_s = time.perf_counter() - t
+    check(x.shape[1] == 68 and x.shape[0] >= 0.9 * len(clips)
+          and labels == sorted(mats),
+          f"phase 11: features {x.shape} of {len(clips)} clips, {labels}")
+    try:
+        study = [dataclasses.asdict(r) for r in train.run_study(x, y)]
+    except RuntimeError as e:
+        check("scikit-learn" in str(e), f"phase 11: the study raised {e!r}")
+        study = f"not run: {e} (sklearn is not installed here)"
+    print(f"phase 11 study: {study}", flush=True)
+    out = {"materials": len(mats), "objects": DATASET_OBJECTS,
+           "modes": M, "hits": DATASET_HITS, "clips": len(clips),
+           "clip_blocks": n_blocks, "clips_s": clips_s,
+           "features_s": features_s, "feature_rows": int(x.shape[0]),
+           "db_blocked_vs_fused": db,
+           "launches": counts}
+    print("dataset:", json.dumps(out), flush=True)
+    return counts
+
+
 def kernel_bounds(hetero_modes_padded, shared_modes_padded, n_chunks,
                   chunk):
     """Each kernel's bound (bench/roofline.py) at the shape its JSON entry
@@ -3570,7 +4206,7 @@ def phase_clock(name, seconds):
 
 
 def run_phases(args, model_pool, model_futures) -> int:
-    """Phases 3-9, the bounds and the closing lines."""
+    """Phases 3-11, the bounds and the closing lines."""
     import torch
     seconds = {}
     dev = torch.device("cuda")
@@ -3622,14 +4258,21 @@ def run_phases(args, model_pool, model_futures) -> int:
     with phase_clock("9", seconds):
         served_launches = phase_served(model_dirs, per_block, modes,
                                        args.seed + 9)
+    torch.cuda.empty_cache()
+    with phase_clock("10", seconds):
+        mesh_launches = phase_mesh(per_block, modes[0], shared, shared_lam,
+                                   model_dirs, args.seed + 10)
+    with phase_clock("11", seconds):
+        dataset_launches = phase_dataset(args.seed + 11)
 
     head = span_cases[SPAN_CASES[0][0]]
     bounds = kernel_bounds(hetero.num_modes, shared.num_modes,
                            head["n_chunks"], head["chunk"])
     # launches: each kernel's count on its render's path (phases 4, 5b,
     # 6c) plus the engine streams' (7d), the spatial path's (8b, 8c, 8e,
-    # 8f) and the served path's (9a-9b's streams, 9c's bakes), each read
-    # around its own run
+    # 8f), the served path's (9a-9b's streams, 9c's bakes), the meshes'
+    # (10a-10e's sharded runs) and the dataset's (11), each read around
+    # its own run
     kernels = [dict(name="fused_block", launches=per_block["launches"],
                     max_abs_err=prod["max_abs_err"], ms=prod["kernel_ms"],
                     device_ms=prod["device_ms"], plain_ms=prod["plain_ms"],
@@ -3648,7 +4291,9 @@ def run_phases(args, model_pool, model_futures) -> int:
     for k in kernels:
         k["launches"] += (live_launches[k["name"]]
                           + spatial_launches[k["name"]]
-                          + served_launches[k["name"]])
+                          + served_launches[k["name"]]
+                          + mesh_launches[k["name"]]
+                          + dataset_launches[k["name"]])
         k.update(route="cuda", source=KERNELS[k["name"]][0],
                  replaces=KERNELS[k["name"]][1],
                  bound_ms=bounds[k["name"]]["bound_ms"],

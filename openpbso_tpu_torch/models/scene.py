@@ -71,8 +71,9 @@ class Scene:
         each narrowband mode). Needs shared-state listener rows; composes
         with ``smooth_transfer`` (the ramp moves both channels).
 
-        ``mesh`` (the JAX package's multi-chip scene) raises: the sharded
-        session is ROADMAP.md Queue 1's ``parallel/`` item.
+        ``mesh`` (a parallel.sharding.Mesh) makes a multi-device scene:
+        the same construction surface with a ShardedSession underneath,
+        its object and mode axes split over the mesh's cells.
 
         ``dtype`` None is float32; ``device`` None is the CUDA device
         (device.resolve_device)."""
@@ -81,10 +82,6 @@ class Scene:
         from ..runtime.session import ModalSession
         from ..runtime.solver import SolverConfig
 
-        if mesh is not None:
-            raise NotImplementedError(
-                "a multi-chip scene (mesh=) is not ported yet: ROADMAP.md "
-                "Queue 1, \"parallel/\" (the sharded session)")
         if not instances:
             raise ValueError("scene needs at least one instance")
         dtype = dtype or torch.float32
@@ -121,9 +118,12 @@ class Scene:
             b[i, :n] = bi
             valid[i, :n] = vi
         shared = all(inst.model is instances[0].model for inst in instances)
+        # a mesh's bank is built on the CPU and reaches the cards only as
+        # the ShardedSession's shards
         self.bank = build_modal_bank(lam, b, valid, block_size=block_size,
                                      shared=shared, dtype=dtype,
-                                     device=device)
+                                     device=device if mesh is None
+                                     else "cpu")
 
         ffat = None
         if use_ffat and any(inst.model.ffat_maps for inst in instances):
@@ -137,13 +137,19 @@ class Scene:
                     self.bank.num_modes, dtype=dtype, device=device)
         # the per-instance float64 eigenvalues enable the span dispatches
         # (shared banks are detected from identical rows)
-        self.session = ModalSession(
-            self.bank, ffat=ffat,
+        session_kw = dict(
+            ffat=ffat,
             config=SolverConfig(block_size=block_size, backend=backend,
                                 smooth_transfer=smooth_transfer),
             num_slots=num_slots, dtype=dtype,
             num_listeners=(self.num_listeners if self.shared_state else 1),
             lam64=lam)
+        if mesh is not None:
+            from ..parallel.session import ShardedSession
+            self.session = ShardedSession(self.bank, mesh, **session_kw)
+            self.bank = self.session.bank     # shape only: no data kept
+        else:
+            self.session = ModalSession(self.bank, **session_kw)
 
         self.positions = np.stack([np.asarray(i.position, np.float64)
                                    for i in instances])

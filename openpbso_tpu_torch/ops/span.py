@@ -17,9 +17,9 @@ chunk-state scan and the within-chunk Toeplitz convolution, which the JAX
 package left to XLA, are hand-written CUDA kernels (ops/chunk_scan.py,
 ops/toeplitz_conv.py).
 
-Only the chunked form is ported: the factored and full forms with their
-FFT convolutions, and the superchunk tables, are not (ROADMAP.md, "Done —
-the chunked span"). The single-level scan matches the superchunk
+Only the chunked form is ported so far: the factored and full forms with
+their FFT convolutions, and the superchunk tables, are still owed
+(ROADMAP.md Queue 1). The single-level scan matches the superchunk
 hierarchy to <= -100 dB (tests/test_span.py).
 """
 from __future__ import annotations
@@ -35,9 +35,8 @@ from .coeffs import ModalBank, _power_table, _to_device, round_up
 from .integrator import _complex_weights
 from .toeplitz_conv import toeplitz_conv
 
-_OTHER_FORMS = ("the factored and full span forms are not ported; the "
-                "port has the chunked form only (ROADMAP.md, 'Done — the "
-                "chunked span')")
+_OTHER_FORMS = ("the factored and full span forms are not ported yet; "
+                "the port has the chunked form only (ROADMAP.md Queue 1)")
 
 
 @dataclasses.dataclass(frozen=True)

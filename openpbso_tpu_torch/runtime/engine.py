@@ -610,11 +610,12 @@ class StreamingEngine:
                 pass
             # this thread did not build the session: kernels launch on the
             # calling thread's current device and stream, so make the
-            # bank's device this thread's
-            device = self.session.bank.device
+            # session's device this thread's
+            device = self.session.device
             if device.type == "cuda":
                 torch.cuda.set_device(device)
-                _thread_first_use(device)
+                for d in self.session.devices:   # a mesh's every card
+                    _thread_first_use(d)
             self._ready.set()
             self._synth_loop_inner()
         except BaseException as e:  # noqa: BLE001 — surfaced via .error

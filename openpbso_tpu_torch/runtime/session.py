@@ -142,6 +142,11 @@ class ModalSession:
         # time differences from the geometry on every move
         self.auto_itd = False
 
+    @property
+    def devices(self) -> tuple:
+        """The devices the session's dispatches run on: the bank's."""
+        return (self.device,)
+
     # ------------------------------------------------------------ events
 
     @property
@@ -196,12 +201,12 @@ class ModalSession:
                     f"when={when} must be a block-aligned sample >= the "
                     f"current clock {t0}")
             t0 = int(when)
-        slots = self.state.slots
-        slots.ftype[obj, slot] = ftype
-        slots.t0[obj, slot] = t0 - self._clock_base  # origin-rebased
-        slots.width[obj, slot] = float(width)
-        slots.amp[obj, slot] = amp
-        slots.space[obj, slot] = vec
+        self._write_rows("slots.ftype", obj, ftype, slot)
+        self._write_rows("slots.t0", obj, t0 - self._clock_base,
+                         slot)   # origin-rebased
+        self._write_rows("slots.width", obj, float(width), slot)
+        self._write_rows("slots.amp", obj, amp, slot)
+        self._write_rows("slots.space", obj, vec, slot)
         self._t0[obj, slot] = t0
         self._expiry[obj, slot] = t0 + dur
 
@@ -210,28 +215,26 @@ class ModalSession:
         (clearAllForces, modal_solver.h:186-189)."""
         objs = np.arange(self.bank.num_objects) if obj is None else [obj]
         objs = np.asarray(objs)
-        rows = torch.as_tensor(objs, device=self.device)
-        self.state.slots.ftype[rows] = 0
-        self.state.sustained.active[rows] = False
+        self._write_rows("slots.ftype", objs, 0)
+        self._write_rows("sustained.active", objs, False)
         self._expiry[objs] = 0
         self._sus_active[objs] = False
 
     def sustained_start(self, obj: int, space: np.ndarray) -> None:
         """Begin a sustained AR contact on ``obj`` with modal amplitudes
         ``space`` (modal_solver.h:190-194); the AR history restarts."""
-        sus = self.state.sustained
-        sus.space[obj] = self._modal_vector(space)
-        sus.ar_hist[obj] = 0.0
-        sus.active[obj] = True
+        self._write_rows("sustained.space", obj, self._modal_vector(space))
+        self._write_rows("sustained.ar_hist", obj, 0.0)
+        self._write_rows("sustained.active", obj, True)
         self._sus_active[obj] = True
 
     def sustained_update(self, obj: int, space: np.ndarray) -> None:
         """Live-update the sustained force direction
         (modal_solver.h:197-199)."""
-        self.state.sustained.space[obj] = self._modal_vector(space)
+        self._write_rows("sustained.space", obj, self._modal_vector(space))
 
     def sustained_end(self, obj: int) -> None:
-        self.state.sustained.active[obj] = False
+        self._write_rows("sustained.active", obj, False)
         self._sus_active[obj] = False
 
     def set_ar_params(self, obj: int, a=(0.783, 0.116), sigma=0.00148,
@@ -247,16 +250,42 @@ class ModalSession:
                 f"characteristic root magnitude {radius:.4f} >= 1 (the "
                 f"impulse tables would overflow)")
         a64 = np.asarray(a, np.float64)
-        sus = self.state.sustained
-        sus.a[obj] = torch.as_tensor(a64).to(self._dtype)
-        sus.sigma[obj] = sigma
-        sus.mu[obj] = mu
-        sus.ar_hist[obj] = 0.0
+        self._write_rows("sustained.a", obj,
+                         torch.as_tensor(a64).to(self._dtype))
+        self._write_rows("sustained.sigma", obj, sigma)
+        self._write_rows("sustained.mu", obj, mu)
+        self._write_rows("sustained.ar_hist", obj, 0.0)
         # the cached span tables depend on ``a`` alone: a sigma/mu retune
         # keeps them
         if not np.array_equal(self._ar_host[obj], a64):
             self._ar_host[obj] = a64
             self._ar_g = {}
+
+    def _write_rows(self, leaf: str, obj, value, slot: int | None = None
+                    ) -> None:
+        """Write ``value`` in place into the rows ``obj`` (an object index
+        or an array of them; with ``slot``, that slot of each) of the state
+        leaf named ``leaf`` ("slots.space", "sustained.active", ...). Every
+        in-place event write goes through here: a sharded session
+        (parallel/session.py) routes each row to the shards that own it.
+        A leaf with a mode axis takes a value whose last axis is modes."""
+        group, name = leaf.split(".")
+        t = getattr(getattr(self.state, group), name)
+        if slot is None:
+            t[obj] = value
+        else:
+            t[obj, slot] = value
+
+    def _current_transfer(self) -> tuple:
+        """The (re, im) transfer rows in use, im None for a real row."""
+        return self.state.transfer, self.state.transfer_im
+
+    def _install_transfer(self, transfer: torch.Tensor,
+                          transfer_im: torch.Tensor | None) -> None:
+        """Replace the transfer rows ([(L,) O, M] on the bank's device);
+        a sharded session scatters them to its shards."""
+        self.state = dataclasses.replace(self.state, transfer=transfer,
+                                         transfer_im=transfer_im)
 
     def set_listener(self, pos: np.ndarray) -> None:
         """Update the acoustic transfer for a listener at ``pos``: [3]
@@ -331,7 +360,7 @@ class ModalSession:
             # remember the outgoing rows (re and im: a complex row ramps
             # both); the next block ramps to the new one (repeated moves
             # within one block keep the oldest start)
-            self._xfade_from = (self.state.transfer, self.state.transfer_im)
+            self._xfade_from = self._current_transfer()
         if (self.auto_itd and self.num_listeners > 1
                 and self._lam64 is not None):
             # interaural time differences from the geometry: a per-mode
@@ -345,14 +374,12 @@ class ModalSession:
             phase = torch.as_tensor(
                 theta[None] * self.itd_delays(rows)[:, :, None]).to(
                     self._dtype).to(self.device)
-            self.state = dataclasses.replace(
-                self.state, transfer=transfer * torch.cos(phase),
-                transfer_im=-transfer * torch.sin(phase))
+            self._install_transfer(transfer * torch.cos(phase),
+                                   -transfer * torch.sin(phase))
             return
         # FFAT lookups are magnitude-only: a complex row's phase does not
         # survive the move
-        self.state = dataclasses.replace(self.state, transfer=transfer,
-                                         transfer_im=None)
+        self._install_transfer(transfer, None)
 
     def set_complex_transfer(self, t: np.ndarray) -> None:
         """Install a complex transfer ([O, M] or [L, O, M]): the imaginary
@@ -365,13 +392,12 @@ class ModalSession:
         a mid-stream install ramps both channels across the next block."""
         t = np.asarray(t)
         if self.config.smooth_transfer and self._xfade_from is None:
-            self._xfade_from = (self.state.transfer, self.state.transfer_im)
+            self._xfade_from = self._current_transfer()
 
         def dev(x):
             return torch.as_tensor(np.ascontiguousarray(x)).to(
                 self._dtype).to(self.device)
-        self.state = dataclasses.replace(self.state, transfer=dev(t.real),
-                                         transfer_im=dev(t.imag))
+        self._install_transfer(dev(t.real), dev(t.imag))
 
     def set_use_compressed(self, use: bool) -> None:
         """Runtime compressed-vs-raw FFAT toggle: which Psi texture transfer
@@ -398,10 +424,9 @@ class ModalSession:
         listener position at once."""
         self.use_transfer = use and self.ffat is not None
         if not use:
-            self.state = dataclasses.replace(
-                self.state,
-                transfer=torch.full_like(self.state.transfer, UNIT_TRANSFER),
-                transfer_im=None)
+            self._install_transfer(
+                torch.full_like(self._current_transfer()[0], UNIT_TRANSFER),
+                None)
         elif self._last_listener is not None:
             self.set_listener_relative(self._last_listener)
 
@@ -417,11 +442,15 @@ class ModalSession:
         delta = self._clock - self._clock_base
         if delta >= REBASE_PERIOD:
             sub = (delta // REBASE_PERIOD) * REBASE_PERIOD
-            t0 = self.state.slots.t0
-            t0.sub_(sub).clamp_(min=-(1 << 30))
-            self.state = dataclasses.replace(
-                self.state, block_start=self.state.block_start - sub)
+            self._shift_clock(sub)
             self._clock_base += sub
+
+    def _shift_clock(self, sub: int) -> None:
+        """Move the device clock origin ``sub`` samples later: every
+        slot's t0 and the block clock drop by ``sub`` (in place)."""
+        self.state.slots.t0.sub_(sub).clamp_(min=-(1 << 30))
+        self.state = dataclasses.replace(
+            self.state, block_start=self.state.block_start - sub)
 
     def decay_eligible(self) -> bool:
         """Whether this session can take the idle fast path: it needs the
@@ -457,7 +486,7 @@ class ModalSession:
         intermediates."""
         if self._sus_active.any() and not ignore_sustained:
             return None
-        k = self.state.slots.num_slots
+        k = self._expiry.shape[1]
         live = self._expiry > self._clock
         need = (int(np.max(np.nonzero(live.any(axis=0))[0])) + 1
                 if live.any() else 1)
@@ -559,15 +588,20 @@ class ModalSession:
             with_sustained = self._with_sustained()
         if num_slots == "auto":
             num_slots = self._span_bucket(with_sustained)
-        k = self.state.slots.num_slots if num_slots is None else num_slots
+        k = self._expiry.shape[1] if num_slots is None else num_slots
         if (not idle and k * n_blocks * self.config.block_size
                 * self.bank.num_objects > self.SPAN_FORCE_BUDGET):
-            self.state, mix = step_multi(
-                self.state, self.bank, self.gains, n_blocks=n_blocks,
-                block_size=self.config.block_size,
-                backend=self.config.backend, with_sustained=with_sustained,
-                num_slots=num_slots)
-        elif idle:
+            mix = self._step_multi(n_blocks, with_sustained, num_slots)
+        else:
+            mix = self._span_mix(n_blocks, num_slots, idle, with_sustained,
+                                 ar_per_object)
+        self._clock += n_blocks * self.config.block_size
+        return mix
+
+    def _span_mix(self, n_blocks: int, num_slots: int | None, idle: bool,
+                  with_sustained: bool, ar_per_object: bool):
+        """One span dispatch with the gating resolved: the device mix."""
+        if idle:
             self.state, mix = decay_span_step(
                 self.state, self.bank, self.span_tables_for(n_blocks),
                 self.gains, n_blocks=n_blocks,
@@ -580,7 +614,17 @@ class ModalSession:
                 with_sustained=with_sustained,
                 ar_g=(self.ar_span_table(n_blocks, ar_per_object)
                       if with_sustained else None))
-        self._clock += n_blocks * self.config.block_size
+        return mix
+
+    def _step_multi(self, n_blocks: int, with_sustained: bool,
+                    num_slots: int | None):
+        """n_blocks block by block in one call (solver.step_multi): the
+        device mix. The caller advances the host clock."""
+        self.state, mix = step_multi(
+            self.state, self.bank, self.gains, n_blocks=n_blocks,
+            block_size=self.config.block_size,
+            backend=self.config.backend, with_sustained=with_sustained,
+            num_slots=num_slots)
         return mix
 
     def _step_span_sound(self, n_blocks: int,
@@ -598,7 +642,15 @@ class ModalSession:
             with_sustained = self._with_sustained()
         if num_slots == "auto":
             num_slots = self._span_bucket(with_sustained)
-        with_sustained = with_sustained and not idle
+        sound = self._span_sound(n_blocks, num_slots, idle,
+                                 with_sustained and not idle, ar_per_object)
+        self._clock += n_blocks * self.config.block_size
+        return sound
+
+    def _span_sound(self, n_blocks: int, num_slots: int | None, idle: bool,
+                    with_sustained: bool, ar_per_object: bool):
+        """One sound span dispatch with the gating resolved: the device
+        sound [O, N] or [O, L, N]."""
         self.state, sound = step_span_sound(
             self.state, self.bank, self.span_tables_for(n_blocks),
             n_blocks=n_blocks, block_size=self.config.block_size,
@@ -606,7 +658,6 @@ class ModalSession:
             ar_g=(self.ar_span_table(n_blocks, ar_per_object)
                   if with_sustained else None),
             idle=idle)
-        self._clock += n_blocks * self.config.block_size
         return sound
 
     def qnorm_probe_eligible(self) -> bool:
@@ -700,7 +751,7 @@ class ModalSession:
                         self.use_compressed = saved_comp
             self.hit(0, np.zeros(self.bank.num_modes), amp=0.0)
             self.clear_forces()
-            k = self.state.slots.num_slots
+            k = self._expiry.shape[1]
             buckets = sorted({b for b in self.config.slot_buckets
                               if b < k}) + [None]
             variants = [(False, b) for b in buckets]
@@ -723,7 +774,7 @@ class ModalSession:
                         # variant; a ramp from the current row to itself
                         # runs each without changing the output
                         _, mix, _ = self._step_xfade(
-                            (self.state.transfer, self.state.transfer_im),
+                            self._current_transfer(),
                             with_sustained=ws, num_slots=b)
                         sync(mix)
                 if self.decay_eligible():
@@ -869,12 +920,8 @@ class ModalSession:
             if use_span:
                 mix = self._step_span(n)
             else:
-                self.state, mix = step_multi(
-                    self.state, self.bank, self.gains, n_blocks=n,
-                    block_size=self.config.block_size,
-                    backend=self.config.backend,
-                    with_sustained=self._with_sustained(),
-                    num_slots=self._slot_bucket())
+                mix = self._step_multi(n, self._with_sustained(),
+                                       self._slot_bucket())
                 self._clock += n * self.config.block_size
             out.append(mix.cpu().numpy())
             done += n
@@ -910,25 +957,37 @@ class ModalSession:
         if self._xfade_from is not None and smooth:
             # the pending move's outgoing row becomes the loop's carry
             # (the real row only: FFAT lookups are magnitude-only)
-            self.state = dataclasses.replace(self.state,
-                                             transfer=self._xfade_from[0])
+            self._install_transfer(self._xfade_from[0],
+                                   self._current_transfer()[1])
         self._xfade_from = None
         out = []
         done = 0
         while done < t_total:
             n = min(blocks_per_dispatch, t_total - done)
             rows = self._transfer_rows(positions[done:done + n])
-            self.state, mix = step_multi_transfers(
-                self.state, self.bank, self.gains, rows,
-                n_blocks=n, block_size=self.config.block_size,
-                backend=self.config.backend, smooth=smooth,
-                with_sustained=self._with_sustained(),
-                num_slots=self._slot_bucket())
+            mix = self._moving(rows, smooth, want_sound=False)
             self._clock += n * self.config.block_size
             out.append(mix.cpu().numpy())
             done += n
         self._last_listener = positions[-1]
         return np.concatenate(out, axis=0)
+
+    def _moving(self, rows: torch.Tensor, smooth: bool, want_sound: bool):
+        """One chunk of a listener path, one transfer row per block
+        (``rows`` [n, (L,) O, M]): the device mix [n*S, C], or with
+        ``want_sound`` the raw sound [(L,) O, n*S]. The caller advances
+        the host clock."""
+        kw = dict(n_blocks=rows.shape[0], block_size=self.config.block_size,
+                  backend=self.config.backend, smooth=smooth,
+                  with_sustained=self._with_sustained(),
+                  num_slots=self._slot_bucket())
+        if want_sound:
+            self.state, out = step_multi_transfers_sound(
+                self.state, self.bank, rows, **kw)
+        else:
+            self.state, out = step_multi_transfers(
+                self.state, self.bank, self.gains, rows, **kw)
+        return out
 
     def _moving_path(self, positions: np.ndarray) -> np.ndarray:
         """A moving-listener path as [T, O, 3], or [T, L, O, 3] with
@@ -1014,8 +1073,8 @@ class ModalSession:
         t_total = positions.shape[0]
         has_ffat = self.ffat is not None and self.use_transfer
         if self._xfade_from is not None and smooth:
-            self.state = dataclasses.replace(self.state,
-                                             transfer=self._xfade_from[0])
+            self._install_transfer(self._xfade_from[0],
+                                   self._current_transfer()[1])
         self._xfade_from = None
         pending = list(state_events or [])
         sounds = []
@@ -1029,14 +1088,9 @@ class ModalSession:
             if has_ffat:
                 rows = self._transfer_rows(positions[done:done + n])
             else:
-                rows = self.state.transfer.expand(
-                    (n,) + tuple(self.state.transfer.shape))
-            self.state, snd = step_multi_transfers_sound(
-                self.state, self.bank, rows,
-                n_blocks=n, block_size=self.config.block_size,
-                backend=self.config.backend, smooth=smooth,
-                with_sustained=self._with_sustained(),
-                num_slots=self._slot_bucket())
+                held = self._current_transfer()[0]
+                rows = held.expand((n,) + tuple(held.shape))
+            snd = self._moving(rows, smooth, want_sound=True)
             self._clock += n * self.config.block_size
             sounds.append(snd.cpu().numpy())
             done += n
@@ -1062,3 +1116,12 @@ class ModalSession:
                           self.gains[:, li: li + 1])
                  for li in range(self.num_listeners)], axis=-1)
         return resample(sound, delay_pos, self.gains)
+
+    def render_raw(self, num_blocks: int) -> np.ndarray:
+        """Offline render of the per-object raw sound, block by block:
+        [O, num_blocks * S] float32 (the training clips of ml/dataset.py)."""
+        out = []
+        for _ in range(num_blocks):
+            sound, _, _ = self.step()
+            out.append(sound.cpu().numpy())
+        return np.concatenate(out, axis=-1)

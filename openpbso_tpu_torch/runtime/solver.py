@@ -80,10 +80,9 @@ def block_backend(state: SolverState, backend: str, bank: ModalBank) -> str:
     return name
 
 
-def _step_block_impl(
+def advance_block(
     state: SolverState,
     bank: ModalBank,
-    gains: torch.Tensor,
     block_size: int,
     backend: str,
     compute_qnorm: bool,
@@ -92,12 +91,15 @@ def _step_block_impl(
     transfer_prev: torch.Tensor | None = None,
     transfer_prev_im: torch.Tensor | None = None,
 ):
-    """Core block step. ``num_slots`` slices the force-slot table to its
-    first k slots when the host expiry mirror proves the rest can no
-    longer produce; ``with_sustained=False`` skips the AR(2) channel when
-    the host mirror proves every channel inactive (both output-invariant).
+    """Core block step before the mixdown: (state', sound [(L,) O, S],
+    qnorm). ``num_slots`` slices the force-slot table to its first k slots
+    when the host expiry mirror proves the rest can no longer produce;
+    ``with_sustained=False`` skips the AR(2) channel when the host mirror
+    proves every channel inactive (both output-invariant).
     ``transfer_prev`` selects the transfer-interpolating variant: the row
-    ramps linearly from it to state.transfer across the block.
+    ramps linearly from it to state.transfer across the block. The sharded
+    steps (parallel/sharding.py) run it on every shard and reduce the
+    partial sounds before they mix.
     """
     slots = state.slots
     if num_slots is not None and num_slots < slots.num_slots:
@@ -132,10 +134,30 @@ def _step_block_impl(
             transfer_prev, state.transfer, compute_qnorm,
             transfer_prev_im=transfer_prev_im,
             transfer_im=state.transfer_im)
-    mix = _mixdown(sound, gains)
     new_state = dataclasses.replace(
         state, z_re=z_re, z_im=z_im, sustained=sus,
         block_start=state.block_start + block_size)
+    return new_state, sound, qnorm
+
+
+def _step_block_impl(
+    state: SolverState,
+    bank: ModalBank,
+    gains: torch.Tensor,
+    block_size: int,
+    backend: str,
+    compute_qnorm: bool,
+    num_slots: int | None = None,
+    with_sustained: bool = True,
+    transfer_prev: torch.Tensor | None = None,
+    transfer_prev_im: torch.Tensor | None = None,
+):
+    """advance_block and the mixdown: (state', sound, mix [S, C], qnorm)."""
+    new_state, sound, qnorm = advance_block(
+        state, bank, block_size, backend, compute_qnorm,
+        num_slots=num_slots, with_sustained=with_sustained,
+        transfer_prev=transfer_prev, transfer_prev_im=transfer_prev_im)
+    mix = _mixdown(sound, gains)
     return new_state, sound, mix.to(torch.float32), qnorm
 
 

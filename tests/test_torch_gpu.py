@@ -665,3 +665,102 @@ def test_fused_block_on_the_replicated_rows(cuda, tmp_path):
     assert fi.LAUNCHES > before
     for ch in range(2):
         assert _db(got[:, ch], shared[:, ch]) <= -90
+
+
+def _mesh_pair(cuda, shape=(2, 2), o=16, n=128, **cfg):
+    """A ShardedSession on a mesh whose cells all name the card, and the
+    unsharded session on the same hetero bank (span tables from lam64)."""
+    from openpbso_tpu_torch.parallel import ShardedSession, make_mesh
+    lam, b, valid = _modes(o, n, shared=False)
+    bank = build_modal_bank(lam, b, valid, block_size=256, device=cuda)
+    kw = dict(config=SolverConfig(block_size=256, backend="blocked", **cfg),
+              num_slots=4, lam64=lam)
+    mesh = make_mesh(*shape, devices=[cuda] * (shape[0] * shape[1]))
+    return ShardedSession(bank, mesh, **kw), ModalSession(bank, **kw), n
+
+
+def test_mesh_session_on_the_card(cuda):
+    """A (2, 2) mesh on the card per block, by span (one reduction per
+    dispatch, the span kernels launched on every shard) and with a drag,
+    against the unsharded session."""
+    from openpbso_tpu_torch.parallel import sharding
+    sh, ref, n = _mesh_pair(cuda)
+    vec = np.random.default_rng(3).standard_normal(n)
+    for s in (sh, ref):
+        s.hit(5, vec, kind="gaussian", width_us=300.0)
+    a = np.concatenate([sh.step()[1].cpu().numpy() for _ in range(3)])
+    b = np.concatenate([ref.step()[1].cpu().numpy() for _ in range(3)])
+    assert np.abs(b).max() > 0 and _db(a, b) <= -90
+    for s in (sh, ref):       # both spans busy: a hit in each
+        s.hit(2, vec, kind="hertz", width_us=2000.0)
+        s.hit(12, -vec, when=s.sample_clock + 4 * 256)
+    k1.LAUNCHES = k2.LAUNCHES = sharding.REDUCTIONS = 0
+    a = sh.render_multi(8, blocks_per_dispatch=4)
+    assert sharding.REDUCTIONS == 2
+    assert k1.LAUNCHES == 2 * 4 and k2.LAUNCHES == 2 * 4
+    assert _db(a, ref.render_multi(8, blocks_per_dispatch=4)) <= -90
+    space = np.linspace(-1.0, 1.0, n)
+    for s in (sh, ref):
+        s.sustained_start(9, space)
+    kb.LAUNCHES = ka.LAUNCHES = 0
+    a = np.concatenate([sh.step()[1].cpu().numpy() for _ in range(2)]
+                       + [sh.render_multi(4, blocks_per_dispatch=4)])
+    assert kb.LAUNCHES == 2 * 4 and ka.LAUNCHES == 4
+    b = np.concatenate([ref.step()[1].cpu().numpy() for _ in range(2)]
+                       + [ref.render_multi(4, blocks_per_dispatch=4)])
+    assert _db(a, b) <= -60
+
+
+def test_mesh_routes_a_hit_to_the_last_shard(cuda):
+    """A hit on the last object with modes only in the last mode slice
+    lands in the last shard's rows on the card and is heard like the
+    unsharded session's."""
+    sh, ref, n = _mesh_pair(cuda)
+    space = np.zeros(n)
+    space[-n // 4:] = 1.0
+    for s in (sh, ref):
+        s.hit(15, space, kind="gaussian", width_us=300.0)
+    last = sh._shards[1][1]
+    assert last.slots.space.device.type == "cuda"
+    assert int(torch.count_nonzero(last.slots.space[7, 0])) > 0
+    assert int(torch.count_nonzero(sh._shards[0][1].slots.space)) == 0
+    a = np.concatenate([sh.step()[1].cpu().numpy() for _ in range(2)])
+    b = np.concatenate([ref.step()[1].cpu().numpy() for _ in range(2)])
+    assert np.abs(b).max() > 0 and _db(a, b) <= -90
+
+
+def test_mesh_of_a_host_bank_keeps_only_the_shards(cuda):
+    """A bank built on the CPU reaches the card only as the mesh's shards:
+    the session keeps a shape-only bank, holds the shards and the state
+    on the card (no second whole bank), and renders as the unsharded
+    session on the card's own bank."""
+    from openpbso_tpu_torch.parallel import ShardedSession, make_mesh
+    lam, b, valid = _modes(16, 128, shared=False)
+    host = build_modal_bank(lam, b, valid, block_size=256, device="cpu")
+    kw = dict(config=SolverConfig(block_size=256, backend="blocked"),
+              num_slots=4)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated(cuda)
+    sh = ShardedSession(host, make_mesh(2, 2, devices=[cuda] * 4), **kw)
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated(cuda) - before
+    assert sh.bank.pow_re.device.type == "meta"
+    banks = [c for row in sh._banks for c in row]
+    assert all(c.pow_re.device.type == "cuda" for c in banks)
+    assert all(c.z_re.device.type == "cuda" for row in sh._shards
+               for c in row)
+
+    def nbytes(bank):
+        return sum(t.numel() * t.element_size() for t in (
+            bank.lam_re, bank.lam_im, bank.b_re, bank.b_im, bank.mask,
+            bank.pow_re, bank.pow_im))
+    whole = nbytes(host)
+    assert sum(nbytes(c) for c in banks) == whole and held < 2 * whole
+    ref = ModalSession(build_modal_bank(lam, b, valid, block_size=256,
+                                        device=cuda), **kw)
+    vec = np.random.default_rng(4).standard_normal(128)
+    for s in (sh, ref):
+        s.hit(13, vec, kind="gaussian", width_us=300.0)
+    a = np.concatenate([sh.step()[1].cpu().numpy() for _ in range(3)])
+    b = np.concatenate([ref.step()[1].cpu().numpy() for _ in range(3)])
+    assert np.abs(b).max() > 0 and _db(a, b) <= -90

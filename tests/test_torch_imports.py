@@ -15,6 +15,7 @@ APPS = ("assemble_movie", "fetch_dataset", "real_time_modal_sound",
         "render_fields", "render_offline", "render_timeline", "serve",
         "softrender")
 import numpy as np
+sys.modules["sklearn"] = None      # as where sklearn is not installed
 import openpbso_tpu_torch as pkg
 names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
 for name in names:
@@ -39,7 +40,10 @@ from openpbso_tpu_torch.runtime.profiling import device_trace
 for required in ("runtime.audio", "runtime.checkpoint", "runtime.engine",
                  "runtime.profiling", "models.scene", "ops.doppler",
                  "ops.hrtf", "ops.ffat_fit", "runtime.server",
-                 "runtime.wsbridge") + tuple("apps." + a for a in APPS):
+                 "runtime.wsbridge", "parallel.session", "parallel.sharding",
+                 "ml.dataset", "ml.features", "ml.ar_model", "ml.train",
+                 "utils.oracle", "io.vectors") + tuple("apps." + a
+                                                       for a in APPS):
     assert "openpbso_tpu_torch." + required in names, required
 engine = StreamingEngine(sess, RawCollectorSink(), qnorm_every=2)
 engine.hit(0, np.ones(16))
@@ -142,6 +146,50 @@ assert hrtf.process_span(torch.ones((3, 128))).shape == (128, 2)
 print("jax" in sys.modules, reference_modules())
 """
 
+_MESH_AND_ML_WITHOUT_JAX = r"""
+import time
+import numpy as np
+sys.modules["sklearn"] = None      # as where sklearn is not installed
+from openpbso_tpu_torch.ml import dataset, train
+from openpbso_tpu_torch.ops.coeffs import bank_from_material, lambda_from_modes
+from openpbso_tpu_torch.parallel import ShardedSession, make_mesh, sharding
+from openpbso_tpu_torch.runtime import RawCollectorSink, StreamingEngine
+from openpbso_tpu_torch.runtime.solver import SolverConfig
+from openpbso_tpu_torch.utils.synth import CERAMIC, synth_mode_data
+md = synth_mode_data(16, 4)
+lam64 = lambda_from_modes(CERAMIC.density, md.omega_squared, CERAMIC.alpha,
+                          CERAMIC.beta)[0]
+bank = bank_from_material(CERAMIC.density, md.omega_squared, CERAMIC.alpha,
+                          CERAMIC.beta, num_objects=4, block_size=64,
+                          device="cpu")
+sess = ShardedSession(bank, make_mesh(2, 2, devices=["cpu"] * 4),
+                      config=SolverConfig(block_size=64), lam64=lam64)
+sess.hit(3, np.ones(16), kind="gaussian", width_us=300.0)
+sharding.REDUCTIONS = 0
+mix = sess.render_multi(4, blocks_per_dispatch=4)
+assert sharding.REDUCTIONS == 1 and np.abs(mix).max() > 0
+engine = StreamingEngine(sess, RawCollectorSink(), lookahead=2)
+engine.hit(1, np.ones(16))
+engine.start()
+deadline = time.time() + 120
+while engine._blocks_done < 6 and time.time() < deadline:
+    time.sleep(0.01)
+engine.stop()
+assert engine.error is None and engine._blocks_done >= 6
+clips = dataset.synthesize_dataset(
+    materials={"glass": dataset.MATERIALS["glass"]}, objects_per_material=2,
+    hits_per_object=1, num_modes=16, seconds=0.02, block=64, device="cpu")
+x, y, labels = dataset.features_matrix(clips)
+assert x.shape == (2, 68) and labels == ["glass"]
+try:
+    train.run_study(x, y)
+except RuntimeError as e:
+    assert "scikit-learn" in str(e)
+else:
+    raise AssertionError("the study ran without sklearn")
+print("jax" in sys.modules, reference_modules())
+"""
+
 # prepended to each script: the modules of the JAX package it has loaded
 _DEF_REFERENCE_MODULES = r"""
 import sys
@@ -201,6 +249,19 @@ def test_serving_surface_runs_without_jax():
         env=_env(), cwd=ROOT, timeout=300)
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.split()[-2:] == ["False", "none"]
+
+
+def test_mesh_session_and_ml_run_without_jax_or_sklearn():
+    """A ShardedSession on a (2, 2) mesh of CPU cells renders a span with
+    one reduction and streams through the engine; ml/ synthesizes clips
+    and their features; the study raises its clear error: with neither
+    jax, openpbso_tpu nor sklearn loadable."""
+    proc = subprocess.run(
+        [sys.executable, "-c", _DEF_REFERENCE_MODULES
+         + _MESH_AND_ML_WITHOUT_JAX], capture_output=True, text=True,
+        env=_env(), cwd=ROOT, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.split() == ["False", "none"]
 
 
 @pytest.mark.parametrize("module", ["runtime.server", "runtime.wsbridge"]

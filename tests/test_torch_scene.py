@@ -268,8 +268,10 @@ def test_render_doppler_matches_jax(models, dberr):
 
 def test_refusals(models):
     (ma, _) = models["t"]
-    with pytest.raises(NotImplementedError, match="parallel/"):
-        TScene([TInstance(ma, np.zeros(3))], mesh=object(), device="cpu")
+    from openpbso_tpu_torch.parallel import make_mesh
+    with pytest.raises(ValueError, match="does not split into 2 shards"):
+        TScene([TInstance(ma, np.zeros(3))],
+               mesh=make_mesh(2, 1, devices=["cpu"] * 2), device="cpu")
     with pytest.raises(ValueError, match="binaural or listener_offsets"):
         TScene([TInstance(ma, np.zeros(3))], binaural=True,
                listener_offsets=np.zeros((2, 3)), device="cpu")

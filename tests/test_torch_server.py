@@ -302,8 +302,12 @@ def served_pcm(mod, engine_mod, monkeypatch, kind, factory, script,
         srv = mod.BroadcastAudioServer(factory, pace_lead=None,
                                        per_client_listeners=2)
         t = start(srv)
-        clients = [mod.AudioClient(*srv.address) for _ in range(2)]
-        assert wait_for(lambda: srv._fanout.n_clients == 2)
+        clients = []
+        for k in range(2):
+            # one at a time: each client's handler thread takes its
+            # listener slot, so two racing connects may swap the slots
+            clients.append(mod.AudioClient(*srv.address))
+            assert wait_for(lambda: srv._fanout.n_clients == k + 1)
     try:
         pcm = run_script(srv, gate, clients, script, n_blocks)
         engine = gate.engines[-1]
