@@ -2,7 +2,7 @@
 
 Each function takes an object whose fields can be read with ``np.asarray``
 (for example a JAX ``ModalBank``, ``SolverState``, ``FFATMaps`` or
-``ChunkSpanTables`` after ``jax.tree.map(np.asarray, x)``) and returns the
+span tables after ``jax.tree.map(np.asarray, x)``) and returns the
 port's counterpart on the chosen device (None: the CUDA device, as every
 builder of the port), dtypes unchanged. This module does not import jax, so
 both packages can compute from identical float32 tables.
@@ -16,7 +16,7 @@ from .device import resolve_device
 from .ops.coeffs import ModalBank
 from .ops.ffat import DeviceFFAT, FFATMaps
 from .ops.forces import ForceSlots, SustainedState
-from .ops.span import ChunkSpanTables
+from .ops.span import ChunkSpanTables, FullSpanTables, SpanTables
 from .runtime.state import SolverState
 
 
@@ -62,12 +62,19 @@ def ffat_from_numpy(src, device=None) -> FFATMaps:
     return FFATMaps(geom=geom, cell_size=_t(src.cell_size, device))
 
 
-def span_tables_from_numpy(src, device=None) -> ChunkSpanTables:
-    """A JAX ``ChunkSpanTables`` as the port's. Its superchunk powers
-    (``s_re``/``s_im``) are dropped: the port runs the single-level
-    chunk scan, which the JAX package holds equal to the superchunk form
-    to <= -100 dB (tests/test_span.py)."""
+def span_tables_from_numpy(src, device=None):
+    """JAX span tables of any form as the port's: ``ChunkSpanTables`` with
+    their superchunk powers (``s_re``/``s_im``, None when absent),
+    ``SpanTables`` and ``FullSpanTables``, told apart by their fields."""
     device = resolve_device(device)
+    if hasattr(src, "p_re"):
+        return FullSpanTables(p_re=_t(src.p_re, device),
+                              p_im=_t(src.p_im, device))
+    if hasattr(src, "a_re"):
+        return SpanTables(**{n: _t(getattr(src, n), device)
+                             for n in ("a_re", "a_im", "b_re", "b_im")})
     return ChunkSpanTables(b_re=_t(src.b_re, device),
                            b_im=_t(src.b_im, device),
-                           n_chunks=int(src.n_chunks))
+                           n_chunks=int(src.n_chunks),
+                           s_re=_t(src.s_re, device),
+                           s_im=_t(src.s_im, device))

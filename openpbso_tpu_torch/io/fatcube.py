@@ -364,3 +364,21 @@ def load_all_fatcubes(dirname: str) -> dict[int, FatcubeMap]:
             m = load_fatcube(os.path.join(dirname, name))
             out[m.mode_id] = m
     return out
+
+
+def maps_match_bits(a: FatcubeMap, b: FatcubeMap) -> bool:
+    """Bitwise round-trip check (reference ffat_map_serialize.h:281-329)."""
+    return (
+        a.mode_id == b.mode_id
+        and a.k == b.k
+        and a.is_compressed == b.is_compressed
+        and np.array_equal(a.center, b.center)
+        and a.shell.cell_size == b.shell.cell_size
+        and np.array_equal(a.shell.low_corners, b.shell.low_corners)
+        and np.array_equal(a.shell.n_elements, b.shell.n_elements)
+        and np.array_equal(a.shell.strides, b.shell.strides)
+        and np.array_equal(a.shell.center, b.shell.center)
+        and np.array_equal(a.shell.bbox_low, b.shell.bbox_low)
+        and np.array_equal(a.shell.bbox_top, b.shell.bbox_top)
+        and np.array_equal(a.psi, b.psi)
+    )

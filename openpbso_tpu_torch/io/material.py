@@ -1,6 +1,6 @@
 """Modal material parameters (DyRT [James 2002] conventions).
 
-The port's own copy of what it uses of openpbso_tpu/io/material.py.
+The port's own copy of openpbso_tpu/io/material.py.
 
 Text format (reference ModalMaterial.h:35-55): lines starting with ``#`` are
 comments; the first non-comment line holds five whitespace-separated numbers::
@@ -12,6 +12,7 @@ where alpha/beta are the Rayleigh damping coefficients.
 from __future__ import annotations
 
 import dataclasses
+import math
 
 
 @dataclasses.dataclass
@@ -22,6 +23,17 @@ class ModalMaterial:
     alpha: float
     beta: float
     name: str = ""
+
+    def xi(self, omega: float) -> float:
+        """Damping ratio xi(omega) = 0.5(alpha/omega + beta*omega).
+
+        Reference ModalMaterial.h:30-31 (DyRT eq. 10).
+        """
+        return 0.5 * (self.alpha / omega + self.beta * omega)
+
+    def omega_d(self, omega: float) -> float:
+        """Damped frequency omega*sqrt(1 - xi^2) (ModalMaterial.h:32-33)."""
+        return omega * math.sqrt(1.0 - self.xi(omega) ** 2)
 
 
 def read_material(path: str) -> ModalMaterial:

@@ -1,6 +1,6 @@
 """Model descriptors and data-directory conventions.
 
-The port's own copy of what it uses of openpbso_tpu/io/meta.py. The
+The port's own copy of openpbso_tpu/io/meta.py. The
 reference locates model data two ways (real_time_modal_sound.cpp:480-501):
 
 1. Convention over a data dir: ``<name>.tet.obj``, ``<name>_surf.modes``,
@@ -23,6 +23,13 @@ class ModelPaths:
     modes_file: str
     material_file: str
     ffat_dir: str
+
+    def exists(self) -> bool:
+        return (
+            os.path.isfile(self.obj_file)
+            and os.path.isfile(self.modes_file)
+            and os.path.isfile(self.material_file)
+        )
 
 
 def read_meta(path: str) -> ModelPaths:
@@ -75,3 +82,45 @@ def read_freq_threshold(ffat_dir: str,
             return float(f.readline().split()[0])
     except (OSError, ValueError, IndexError):
         return default
+
+
+def list_dir_files(dirname: str, contains: str = "") -> list[str]:
+    """List full paths of regular files whose name contains ``contains``.
+
+    Mirrors reference io.cpp:18-35 (sorted for determinism).
+    """
+    if not os.path.isdir(dirname):
+        return []
+    out = []
+    for name in sorted(os.listdir(dirname)):
+        full = os.path.join(dirname, name)
+        if contains in name and os.path.isfile(full):
+            out.append(full)
+    return out
+
+
+def prepare_meta_dir(data_root: str, out_dir: str | None = None,
+                     relative: bool = False) -> list[str]:
+    """Write a .meta descriptor for every model found under ``data_root``.
+
+    The reference ships prepare_meta.sh, which emits 4-line meta files for
+    each ``*.tet.obj`` model in a dataset directory; this is its in-library
+    equivalent. Returns the written meta paths.
+    """
+    out_dir = out_dir or data_root
+    os.makedirs(out_dir, exist_ok=True)
+    written = []
+    for name in sorted(os.listdir(data_root)):
+        if not name.endswith(".tet.obj"):
+            continue
+        prefix = name[: -len(".tet.obj")]
+        paths = resolve_model_dir(data_root, prefix)
+        if relative:
+            paths = ModelPaths(*(os.path.relpath(p, out_dir)
+                                 for p in (paths.obj_file, paths.modes_file,
+                                           paths.material_file,
+                                           paths.ffat_dir)))
+        meta_path = os.path.join(out_dir, f"{prefix}.meta")
+        write_meta(meta_path, paths)
+        written.append(meta_path)
+    return written

@@ -6,7 +6,8 @@ mesh + normals, mode data, material, audible-mode culling, and the FFAT map
 directory, and provides the modal force projection used when the user
 strikes the surface (GetModalForceVertex / GetModalForceFace,
 real_time_modal_sound.cpp:236-295). ``.fatcube`` files are decoded by the
-Python codec (``io.fatcube``).
+native decoder (``native.bindings``), which falls back to the Python codec
+(``io.fatcube``) per file; the maps are bitwise the same either way.
 """
 from __future__ import annotations
 
@@ -15,11 +16,12 @@ import dataclasses
 import numpy as np
 
 from ..config import DEFAULT_AUDIBLE_FREQ
-from ..io.fatcube import FatcubeMap, load_all_fatcubes
+from ..io.fatcube import FatcubeMap
 from ..io.material import ModalMaterial, read_material
 from ..io.meta import ModelPaths, read_freq_threshold
 from ..io.mode_data import ModeData, read_modes
 from ..io.objmesh import per_vertex_normals, read_obj
+from ..native.bindings import load_all_fatcubes_native
 
 
 @dataclasses.dataclass
@@ -77,7 +79,9 @@ def load_model(paths: ModelPaths, name: str = "",
         audible_freq = read_freq_threshold(paths.ffat_dir,
                                            DEFAULT_AUDIBLE_FREQ)
     n_aud = modes.num_modes_audible(material.density, audible_freq)
-    maps = load_all_fatcubes(paths.ffat_dir)
+    # bulk-decode through the native C decoder (LoadAllFFAT_Maps,
+    # ffat_map_serialize.h:267-279 is the reference's dataset-scale load)
+    maps = load_all_fatcubes_native(paths.ffat_dir)
     if modes.num_dof != v.shape[0] * 3:
         raise ValueError(
             f"DOF mismatch: mesh has {v.shape[0] * 3}, modes have "

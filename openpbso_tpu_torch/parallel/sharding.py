@@ -40,7 +40,7 @@ from ..config import DEFAULT_BLOCK
 from ..ops.coeffs import ModalBank
 from ..ops.forces import ForceSlots, SustainedState
 from ..ops.integrator import decay_block_blocked
-from ..ops.span import ChunkSpanTables
+from ..ops.span import ChunkSpanTables, FullSpanTables, SpanTables
 from ..runtime.solver import (_mixdown, _mixdown_span, advance_block,
                               step_span_sound)
 from ..runtime.state import SolverState
@@ -133,11 +133,19 @@ def bank_specs(bank: ModalBank) -> ModalBank:
                      pow_re=table, pow_im=table)
 
 
-def span_table_specs(tables: ChunkSpanTables) -> ChunkSpanTables:
-    """[Og, C+1, M] chunk tables: the mode axis splits, the power axis
-    replicates, the object axis follows the bank's layout."""
+def span_table_specs(tables):
+    """Specs of ops.span tables: the mode axis splits, the power axis
+    replicates, the object axis follows the bank's layout. The full
+    table ([M, N+1]) splits its mode axis 0. The superchunk powers of
+    chunk tables split like the baby table (the JAX package's specs leave
+    them out, and its shard_span_tables raises on them)."""
+    if isinstance(tables, FullSpanTables):
+        return FullSpanTables(p_re=(None, 0), p_im=(None, 0))
     spec = (None, 2) if tables.shared else (0, 2)
-    return ChunkSpanTables(b_re=spec, b_im=spec, n_chunks=None)
+    if isinstance(tables, SpanTables):
+        return SpanTables(a_re=spec, a_im=spec, b_re=spec, b_im=spec)
+    return ChunkSpanTables(b_re=spec, b_im=spec, n_chunks=None,
+                           s_re=spec, s_im=spec)
 
 
 def _sound_spec(sound: torch.Tensor) -> tuple:
@@ -253,7 +261,7 @@ def shard_bank(mesh: Mesh, bank: ModalBank) -> list:
     return _tree_split(mesh, bank, bank_specs(bank))
 
 
-def shard_span_tables(mesh: Mesh, tables: ChunkSpanTables) -> list:
+def shard_span_tables(mesh: Mesh, tables) -> list:
     return _tree_split(mesh, tables, span_table_specs(tables))
 
 

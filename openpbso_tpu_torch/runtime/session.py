@@ -501,7 +501,16 @@ class ModalSession:
         """ChunkSpanTables for n_blocks*block_size samples, or None when
         the session was built without lam64. The device table depends only
         on the chunk size, so spans of different lengths with one chunk
-        size (a render's remainder dispatch) share one cached build."""
+        size (a render's remainder dispatch) share one cached build.
+
+        The tables are flat (no superchunk powers), where the JAX session
+        takes build_span_tables' default and so the two-level scan on
+        shared spans of 64 or more chunks: on the H100 the two-level form
+        measured slower than the single-level chunk_scan at shared 256x1024
+        and 512 blocks (chip_smoke.py phase 12a, PERF.md), and the two
+        agree to float32 rounding (tests/test_torch_span.py). Tables put in
+        the cache by hand (superchunk ones included) are used as they
+        are."""
         if self._lam64 is None:
             return None
         span = n_blocks * self.config.block_size

@@ -42,8 +42,8 @@ for required in ("runtime.audio", "runtime.checkpoint", "runtime.engine",
                  "ops.hrtf", "ops.ffat_fit", "runtime.server",
                  "runtime.wsbridge", "parallel.session", "parallel.sharding",
                  "ml.dataset", "ml.features", "ml.ar_model", "ml.train",
-                 "utils.oracle", "io.vectors") + tuple("apps." + a
-                                                       for a in APPS):
+                 "utils.oracle", "io.vectors", "native.bindings",
+                 *("apps." + a for a in APPS)):
     assert "openpbso_tpu_torch." + required in names, required
 engine = StreamingEngine(sess, RawCollectorSink(), qnorm_every=2)
 engine.hit(0, np.ones(16))
@@ -190,6 +190,62 @@ else:
 print("jax" in sys.modules, reference_modules())
 """
 
+_SPAN_FORMS_AND_NATIVE_WITHOUT_JAX = r"""
+import dataclasses, tempfile
+import numpy as np
+from openpbso_tpu_torch.io import encode_fatcube, maps_match_bits
+from openpbso_tpu_torch.io.meta import resolve_model_dir
+from openpbso_tpu_torch.models import load_model
+from openpbso_tpu_torch.native import (NativeSpscRing, load_native,
+                                       native_decode_fatcube)
+from openpbso_tpu_torch.ops.coeffs import bank_from_material, lambda_from_modes
+from openpbso_tpu_torch.ops.span import (build_span_tables, decay_span,
+                                         integrate_span)
+from openpbso_tpu_torch.runtime.session import ModalSession
+from openpbso_tpu_torch.runtime.solver import SolverConfig
+from openpbso_tpu_torch.utils.synth import (CERAMIC, synth_fatcube,
+                                            synth_mode_data, synth_model_dir)
+import torch
+md = synth_mode_data(16, 4)
+lam64 = lambda_from_modes(CERAMIC.density, md.omega_squared, CERAMIC.alpha,
+                          CERAMIC.beta)[0]
+bank = bank_from_material(CERAMIC.density, md.omega_squared, CERAMIC.alpha,
+                          CERAMIC.beta, num_objects=2, block_size=32,
+                          device="cpu")
+m = bank.num_modes
+z = torch.zeros((2, m))
+space = torch.ones((2, 1, m))
+f = torch.zeros((2, 1, 64 * 32))
+f[:, 0, 0] = 1.0
+outs = []
+for kw in (dict(form="factored"), dict(form="full"), dict(radix=32)):
+    t = build_span_tables(lam64, 64 * 32, num_modes=m, device="cpu", **kw)
+    zr, zi, snd = integrate_span(z, z, bank, t, space, f, torch.ones_like(z))
+    outs.append(snd)
+    assert decay_span(zr, zi, bank, t, torch.ones_like(z))[2].shape == (
+        2, 64 * 32)
+assert t.superchunk == 32
+for o in outs[:2]:
+    err = float(((o - outs[2]) ** 2).sum() / (outs[2] ** 2).sum())
+    assert 0 < float((outs[2] ** 2).sum()) and err < 1e-9, err
+sess = ModalSession(bank, config=SolverConfig(block_size=32), lam64=lam64)
+sess.hit(1, np.ones(16))
+assert sess.span_tables_for(1024).superchunk == 1    # the flat form
+sess._span_cache[512] = build_span_tables(lam64, 1024 * 32, radix=512,
+                                          num_modes=m, device="cpu")
+assert np.abs(sess.render_multi(1024, blocks_per_dispatch=1024)).max() > 0
+assert sess.span_tables_for(1024).superchunk == 32
+assert load_native() is not None
+ring = NativeSpscRing(4, (8, 2))
+assert ring.try_push(np.ones((8, 2), np.float32))
+assert np.array_equal(ring.try_pop(), np.ones((8, 2), np.float32))
+mp = synth_fatcube(2, 300.0, n=5)
+assert maps_match_bits(native_decode_fatcube(encode_fatcube(mp)), mp)
+root = synth_model_dir(tempfile.mkdtemp(), num_modes=6, ffat_n=4)
+assert len(load_model(resolve_model_dir(root)).ffat_maps) == 6
+print("jax" in sys.modules, reference_modules())
+"""
+
 # prepended to each script: the modules of the JAX package it has loaded
 _DEF_REFERENCE_MODULES = r"""
 import sys
@@ -260,6 +316,22 @@ def test_mesh_session_and_ml_run_without_jax_or_sklearn():
         [sys.executable, "-c", _DEF_REFERENCE_MODULES
          + _MESH_AND_ML_WITHOUT_JAX], capture_output=True, text=True,
         env=_env(), cwd=ROOT, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.split() == ["False", "none"]
+
+
+def test_span_forms_and_native_run_without_jax():
+    """The factored, full and superchunk span forms integrate and ring
+    down (the forms agreeing), a session renders through superchunk
+    tables, and the
+    native library builds, rings and decodes, loading a model: with
+    neither jax nor openpbso_tpu loaded."""
+    if shutil.which("g++") is None:
+        pytest.skip("g++ not on PATH: the native library cannot build")
+    proc = subprocess.run(
+        [sys.executable, "-c", _DEF_REFERENCE_MODULES
+         + _SPAN_FORMS_AND_NATIVE_WITHOUT_JAX], capture_output=True,
+        text=True, env=_env(), cwd=ROOT, timeout=300)
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.split() == ["False", "none"]
 

@@ -219,3 +219,69 @@ def test_load_model_refuses_a_dof_mismatch_as_jax(tmp_path):
                           (jmm.load_model, jmeta.resolve_model_dir)):
         with pytest.raises(ValueError, match="DOF mismatch"):
             load(resolve(root))
+
+
+@pytest.mark.parametrize("omega", [2 * np.pi * 440.0, 40.0, 9.0e4])
+def test_material_damping_formulas_match_jax(omega):
+    """ModalMaterial.xi and .omega_d (tests/test_io.py's damping case):
+    the port's the JAX package's, bitwise, and the formulas themselves."""
+    got, ref = tsynth.CERAMIC, jsynth.CERAMIC
+    assert got.xi(omega) == ref.xi(omega)
+    assert got.omega_d(omega) == ref.omega_d(omega)
+    xi = got.xi(omega)
+    assert xi == pytest.approx(0.5 * (got.alpha / omega + got.beta * omega))
+    assert got.omega_d(omega) == pytest.approx(omega * np.sqrt(1 - xi ** 2))
+
+
+@pytest.mark.parametrize("relative", [False, True])
+def test_prepare_meta_dir_matches_jax(tmp_path, relative):
+    """prepare_meta_dir (tests/test_io.py's case), list_dir_files and
+    ModelPaths.exists: the same files, the same bytes, the same answers."""
+    root = str(tmp_path / "data")
+    for name in ("a", "b"):
+        jsynth.synth_model_dir(root, name, num_modes=4, subdivisions=0,
+                               ffat_n=4)
+    got = tmeta.prepare_meta_dir(root, str(tmp_path / "t"),
+                                 relative=relative)
+    ref = jmeta.prepare_meta_dir(root, str(tmp_path / "j"),
+                                 relative=relative)
+    assert [os.path.basename(p) for p in got] == ["a.meta", "b.meta"]
+    assert [os.path.basename(p) for p in ref] == ["a.meta", "b.meta"]
+    for g, r in zip(got, ref):
+        if not relative:
+            assert _read(g) == _read(r)
+        meta = tmeta.read_meta(g)
+        assert meta.obj_file.endswith(os.path.basename(g)[:-5] + ".tet.obj")
+    for contains in ("", ".meta", "a.", "nothing"):
+        assert (tmeta.list_dir_files(str(tmp_path / "t"), contains)
+                == [p.replace(f"{os.sep}j{os.sep}", f"{os.sep}t{os.sep}")
+                    for p in jmeta.list_dir_files(str(tmp_path / "j"),
+                                                  contains)])
+    assert tmeta.list_dir_files(str(tmp_path / "absent")) == []
+    assert tmeta.list_dir_files(root) == jmeta.list_dir_files(root)
+    paths = tmeta.resolve_model_dir(root, "a")
+    jpaths = jmeta.resolve_model_dir(root, "a")
+    assert paths.exists() and jpaths.exists()
+    os.remove(paths.material_file)
+    assert not paths.exists() and not jpaths.exists()
+
+
+def test_maps_match_bits_matches_jax():
+    """maps_match_bits answers as the JAX package's on equal maps and on
+    maps that differ in one field."""
+    import dataclasses
+    base = jsynth.synth_fatcube(3, 700.0, n=5, seed=1)
+    psi = base.psi.copy()
+    psi[2] = np.nextafter(psi[2], np.inf)
+    others = [base, tfc.decode_fatcube(jfc.encode_fatcube(base)),
+              dataclasses.replace(base, psi=psi),
+              dataclasses.replace(base, k=base.k * 2),
+              dataclasses.replace(base, center=base.center + 1.0),
+              dataclasses.replace(base, is_compressed=True)]
+    answers = [tfc.maps_match_bits(base, m) for m in others]
+    assert answers == [jfc.maps_match_bits(base, m) for m in others]
+    assert answers == [True, True, False, False, False, False]
+    from openpbso_tpu_torch import io as tio
+    assert tio.maps_match_bits is tfc.maps_match_bits
+    for name in ("list_dir_files", "prepare_meta_dir", "ModelPaths"):
+        assert getattr(tio, name) is getattr(tmeta, name)
