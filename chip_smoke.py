@@ -193,7 +193,19 @@ Phases, in order; any failure raises and the script exits non-zero:
    8's directories decoded natively with no fallback, bitwise the Python
    codec's; the bulk load timed A B B A against the codec's, load_model
    once, and 10^4 [512, 2] blocks through NativeSpscRing between two
-   threads, whole and in order.
+   threads, whole and in order;
+13. the span's mode contractions: span_inject and span_reduce (g and hom)
+   against their twins (<= -110 dB, bitwise repeatable) and timed (CUDA
+   events, profiler device time, the twin, the cuBLAS SGEMM pair of the
+   same contraction as a yardstick, the bound of bench/roofline.py) at
+   the main path's shapes: shared 256x1024 nb=512 (C = X = 512), hetero
+   nb=1024 and nb=16 (5b's spans), the engine's one-block span (C = 64,
+   X = 8, K = 17), phase 8c's L = 2 complex rows and a (2, 2) shard's
+   (8c's and 10b's captured inputs); then phase 5's busy dispatch at
+   shared nb=512 and hetero nb=1024 and nb=16 through the twin-composed
+   stages and the kernels, synced, A B B A, and 7d's engine p50/p99.
+   Phases 5b, 8c and 10b also hold both kernels against their twins on
+   their dispatches' own inputs.
 
 Every timed kernel also gets its device time: the torch.profiler duration
 of one launch, median over 30 calls (CUDA events time the host's enqueue
@@ -275,7 +287,8 @@ TOEPLITZ_SHAPES = (   # the span's short chunks: label, (O, L, K, X, C)
 CUDA_NAMES = {   # name -> the CUDA kernel its wrapper launches
     "fused_block": "fused_block_kernel", "chunk_scan": "chunk_scan_kernel",
     "toeplitz_conv": "toeplitz_conv_tc", "ar_noise": "ar_noise_kernel",
-    "ar_block": "ar_block_kernel"}
+    "ar_block": "ar_block_kernel", "span_inject": "span_inject_tc",
+    "span_reduce": "span_reduce_tc"}
 KERNELS = {   # name -> (source, the TPU kernel or XLA stage it replaces)
     "fused_block": ("openpbso_tpu_torch/csrc/fused_block.cu",
                     "openpbso_tpu/ops/pallas_integrator.py:60"),
@@ -287,6 +300,10 @@ KERNELS = {   # name -> (source, the TPU kernel or XLA stage it replaces)
                  "openpbso_tpu/ops/forces.py:378"),
     "ar_block": ("openpbso_tpu_torch/csrc/ar_block.cu",
                  "openpbso_tpu/ops/forces.py:607"),
+    "span_inject": ("openpbso_tpu_torch/csrc/span_inject.cu",
+                    "openpbso_tpu/ops/pallas_integrator.py:98"),
+    "span_reduce": ("openpbso_tpu_torch/csrc/span_reduce.cu",
+                    "openpbso_tpu/ops/pallas_integrator.py:86"),
 }
 
 
@@ -341,10 +358,12 @@ def shared_bank(o, n_modes, s, device):
 def kernel_modules() -> dict:
     """kernel name -> the wrapper module holding its LAUNCHES count."""
     from openpbso_tpu_torch.ops import (ar_block, ar_noise, chunk_scan,
-                                        fused_integrator, toeplitz_conv)
+                                        fused_integrator, span_inject,
+                                        span_reduce, toeplitz_conv)
     return {"fused_block": fused_integrator, "chunk_scan": chunk_scan,
             "toeplitz_conv": toeplitz_conv, "ar_noise": ar_noise,
-            "ar_block": ar_block}
+            "ar_block": ar_block, "span_inject": span_inject,
+            "span_reduce": span_reduce}
 
 
 def reset_launches():
@@ -354,6 +373,18 @@ def reset_launches():
 
 def read_launches() -> dict:
     return {name: mod.LAUNCHES for name, mod in kernel_modules().items()}
+
+
+def span_want(busy, idle, drags=0) -> dict:
+    """The kernels' launches of ``busy`` and ``idle`` (ring-down) chunked
+    span dispatches, ``drags`` of the busy ones with the sustained
+    channel: each one chunk_scan; a busy one one toeplitz_conv, one
+    span_inject and two span_reduce (g, hom), with the channel one
+    ar_noise and the noise's toeplitz_conv; a ring-down one span_reduce
+    (hom)."""
+    return dict(dict.fromkeys(KERNELS, 0), chunk_scan=busy + idle,
+                toeplitz_conv=busy + drags, span_inject=busy,
+                span_reduce=2 * busy + idle, ar_noise=drags)
 
 
 def block_inputs(bank, s, rng):
@@ -730,41 +761,112 @@ def span_kernel_case(name, bank, lam64, n_blocks, seed):
     return out
 
 
+def span_call_kind(label, args) -> str:
+    """Which call of a span dispatch a span-module kernel call is:
+    chunk_scan "busy" (injections) or "decay"; span_reduce "g" (table row
+    0), "hom" (with the convolution added) or "decay"; else "busy"."""
+    if label == "chunk_scan":
+        return "decay" if args[5] is None else "busy"
+    if label == "span_reduce":
+        if args[6] == 0:
+            return "g"
+        return "decay" if len(args) < 8 or args[7] is None else "hom"
+    return "busy"
+
+
+SPAN_TABLE_ARGS = {"span_inject": (3, 4), "span_reduce": (4, 5)}
+
+
 @contextlib.contextmanager
 def capture_span_kernel_inputs():
-    """While open, keep a copy of the arguments of the first chunk_scan
-    call with injections ("busy"), the first without ("decay") and the
-    first toeplitz_conv call that the span module makes, so the kernels can
-    be held against their twins on a real dispatch's own inputs."""
+    """While open, keep a copy of the arguments of the first call of each
+    kind (span_call_kind) that the span module makes of chunk_scan,
+    toeplitz_conv, span_inject and span_reduce, so the kernels can be held
+    against their twins on a real dispatch's own inputs (the power tables,
+    which nothing writes, by reference)."""
     import torch
     from openpbso_tpu_torch.ops import span as span_mod
     captured = {}
+    names = ("chunk_scan", "toeplitz_conv", "span_inject", "span_reduce")
 
     def capturing(fn, label):
         def call(*args):
-            key = (label, "decay" if label == "chunk_scan" and args[5] is None
-                   else "busy")
+            key = (label, span_call_kind(label, args))
             if key not in captured:
-                captured[key] = [a.clone() if isinstance(a, torch.Tensor)
-                                 else a for a in args]
+                keep = SPAN_TABLE_ARGS.get(label, ())
+                captured[key] = [
+                    a.clone() if isinstance(a, torch.Tensor)
+                    and i not in keep else a for i, a in enumerate(args)]
             return fn(*args)
         return call
-    originals = span_mod.chunk_scan, span_mod.toeplitz_conv
-    span_mod.chunk_scan = capturing(originals[0], "chunk_scan")
-    span_mod.toeplitz_conv = capturing(originals[1], "toeplitz_conv")
+    originals = {n: getattr(span_mod, n) for n in names}
+    for n in names:
+        setattr(span_mod, n, capturing(originals[n], n))
     try:
         yield captured
     finally:
-        span_mod.chunk_scan, span_mod.toeplitz_conv = originals
+        for n in names:
+            setattr(span_mod, n, originals[n])
+
+
+CONTRACTION_DB = -110.0      # the 3xTF32 span GEMMs against their twins
+CONTRACTION_INPUTS = {}      # label -> {kind: args}: 8c's and 10b's inputs
+ENGINE_STATS = {}            # 7d's streams -> p50 and p99 ms a block
+
+
+def keep_contraction_inputs(label, captured):
+    """Keep a dispatch's captured span_inject and span_reduce inputs for
+    phase 13's timings."""
+    CONTRACTION_INPUTS[label] = {
+        "span_inject": captured[("span_inject", "busy")],
+        "g": captured[("span_reduce", "g")],
+        "hom": captured[("span_reduce", "hom")]}
+
+
+def contraction_call(name):
+    """span_inject's or span_reduce's wrapper and plain twin."""
+    from openpbso_tpu_torch.ops import span_inject as k3
+    from openpbso_tpu_torch.ops import span_reduce as k4
+    if name == "span_inject":
+        return k3.span_inject, k3.span_inject_reference
+    return k4.span_reduce, k4.span_reduce_reference
+
+
+def contraction_case(label, name, args) -> dict:
+    """span_inject or span_reduce against its twin on ``args``: <=
+    CONTRACTION_DB and two runs bitwise equal."""
+    import torch
+    kernel, twin = contraction_call(name)
+    got, again, plain = (fn(*args) for fn in (kernel, kernel, twin))
+    if name == "span_reduce":
+        got, again, plain = [got], [again], [plain]
+    torch.cuda.synchronize()
+    out = {"case": label, "kernel": name, "max_abs_err": 0.0,
+           "shapes": [list(a.shape) for a in args
+                      if isinstance(a, torch.Tensor)]}
+    dbs = []
+    for k, a, p in zip(got, again, plain):
+        check(torch.equal(k, a), f"{name} ({label}) differs between runs")
+        check(bool(torch.isfinite(k).all()), f"{name} ({label}) not finite")
+        dbs.append(db_error(k.cpu().numpy(), p.cpu().numpy()))
+        out["max_abs_err"] = max(out["max_abs_err"],
+                                 float((k - p).abs().max()))
+    out["db_vs_plain"] = max(dbs)
+    check(out["db_vs_plain"] <= CONTRACTION_DB,
+          f"{name} ({label}) {out['db_vs_plain']} dB vs plain")
+    return out
 
 
 def check_dispatch_inputs(captured) -> dict:
     """Each captured dispatch's kernel call against its twin: chunk_scan
-    <= -100 dB, toeplitz_conv through toeplitz_case."""
+    <= -100 dB, toeplitz_conv through toeplitz_case, span_inject and
+    span_reduce through contraction_case."""
     import torch
     from openpbso_tpu_torch.ops import chunk_scan as k1
     want = {("chunk_scan", "busy"), ("chunk_scan", "decay"),
-            ("toeplitz_conv", "busy")}
+            ("toeplitz_conv", "busy"), ("span_inject", "busy"),
+            ("span_reduce", "g"), ("span_reduce", "hom"),
+            ("span_reduce", "decay")}
     check(set(captured) == want, f"captured span calls {sorted(captured)}")
     out = {}
     for (label, kind), args in sorted(captured.items()):
@@ -772,6 +874,10 @@ def check_dispatch_inputs(captured) -> dict:
         if label == "toeplitz_conv":
             out[f"{label}_{kind}"] = dict(
                 toeplitz_case(f"{kind} dispatch", *args), shapes=shapes)
+            continue
+        if label in ("span_inject", "span_reduce"):
+            out[f"{label}_{kind}"] = contraction_case(f"{kind} dispatch",
+                                                      label, args)
             continue
         got, plain = k1.chunk_scan(*args), k1.chunk_scan_reference(*args)
         torch.cuda.synchronize()
@@ -810,8 +916,7 @@ def phase_span_session(bank, lam64, per_block):
     check(mix.shape == (RENDER_BLOCKS * S, 2), f"span mix shape {mix.shape}")
     check(bool(np.isfinite(mix).all()) and float(np.abs(mix).max()) > 0,
           "span mix not finite or silent")
-    want = {"fused_block": 0, "chunk_scan": n_dispatch,
-            "toeplitz_conv": busy, "ar_noise": 0, "ar_block": 0}
+    want = span_want(busy, n_dispatch - busy)
     check(counts == want, f"span launches {counts} != {want}")
     db_fused = db_error(mix, per_block["mix"])
     check(db_fused <= -90.0, f"span mix {db_fused} dB vs the fused render")
@@ -1096,16 +1201,14 @@ def phase_sustained_session(bank, lam64, per_block) -> dict:
     drag = [start_b <= b < end_b for b in range(RENDER_BLOCKS)]
     busy = [b * S < per_block["last_expiry"] or drag[b]
             for b in range(RENDER_BLOCKS)]
-    check(block_counts == {"fused_block": sum(busy), "ar_block": sum(drag),
-                           "ar_noise": 0, "chunk_scan": 0,
-                           "toeplitz_conv": 0},
+    check(block_counts == dict(dict.fromkeys(KERNELS, 0),
+                               fused_block=sum(busy), ar_block=sum(drag)),
           f"per-block launches {block_counts}")
     dispatches = [b0 + d for b0, n in zip((0,) + DRAG_EVENTS, segments)
                   for d in range(0, n, SPAN_DISPATCH)]
-    want = {"fused_block": 0, "ar_block": 0,
-            "ar_noise": sum(drag[b] for b in dispatches),
-            "chunk_scan": len(dispatches),
-            "toeplitz_conv": sum(busy[b] + drag[b] for b in dispatches)}
+    n_busy = sum(busy[b] for b in dispatches)
+    want = span_want(n_busy, len(dispatches) - n_busy,
+                     sum(drag[b] for b in dispatches))
     check(span_counts == want, f"span launches {span_counts} != {want}")
     for label, mix in (("per-block", block_mix), ("span", span_mix)):
         check(mix.shape == (RENDER_BLOCKS * S, 2)
@@ -1404,19 +1507,20 @@ def expected_launches(log) -> dict:
     """The kernels' launches that a dispatch log of a heterogeneous CUDA
     session implies: a full block steps through fused_block where its rows
     take it, plus ar_block with the sustained channel; an xfade block goes
-    through the blocked form; a span is one chunk_scan, one toeplitz_conv
-    unless idle, and with the channel one ar_noise and the noise's
-    toeplitz_conv."""
+    through the blocked form; a span launches what span_want counts (one
+    chunk_scan; unless idle one toeplitz_conv, one span_inject and two
+    span_reduce, idle one span_reduce; with the channel one ar_noise and
+    the noise's toeplitz_conv)."""
     want = dict.fromkeys(KERNELS, 0)
     for kind, _, with_sustained, fused in log:
         want["fused_block"] += fused
         if kind in ("full", "xfade"):
             want["ar_block"] += bool(with_sustained)
         if kind in ("span", "idle_span"):
-            want["chunk_scan"] += 1
-        if kind == "span":
-            want["toeplitz_conv"] += 1 + bool(with_sustained)
-            want["ar_noise"] += bool(with_sustained)
+            busy = kind == "span"
+            for k, n in span_want(busy, not busy,
+                                  busy and bool(with_sustained)).items():
+                want[k] += n
     return want
 
 
@@ -1426,15 +1530,16 @@ def reckon_launches(recorded, sizes, spans, moved, fused) -> tuple:
     as it applied them (each stamped with its block's first sample) and the
     blocks each dispatch held. A listener move takes the next block through
     the transfer ramp (the blocked form: no fused_block); a block with every
-    hit's slot expired and no drag is idle (the decay step, or a span that
-    is chunk_scan alone); a drag adds ar_block per block, or ar_noise and
-    the noise's toeplitz_conv per span. With ``spans`` (a session holding
-    lam64) every dispatch is one span unless a move is pending, and then
-    its blocks go one by one; ``moved`` says whether one is pending when
-    the stream starts; ``fused`` whether the session's rows take a full
-    block through fused_block (fused_rows). The stream retunes only sigma
-    and mu, so the span stays eligible throughout. Returns (launches,
-    dispatch kinds)."""
+    hit's slot expired and no drag is idle (the decay step, or a span of
+    chunk_scan and one span_reduce; a busy span adds toeplitz_conv,
+    span_inject and a second span_reduce); a drag adds ar_block per block,
+    or ar_noise and the noise's toeplitz_conv per span. With ``spans`` (a
+    session holding lam64) every dispatch is one span unless a move is
+    pending, and then its blocks go one by one; ``moved`` says whether one
+    is pending when the stream starts; ``fused`` whether the session's
+    rows take a full block through fused_block (fused_rows). The stream
+    retunes only sigma and mu, so the span stays eligible throughout.
+    Returns (launches, dispatch kinds)."""
     from openpbso_tpu_torch.config import SAMPLE_RATE
     from openpbso_tpu_torch.ops.forces import (FORCE_GAUSSIAN, FORCE_HERTZ,
                                                FORCE_POINT, slot_duration)
@@ -1481,10 +1586,8 @@ def reckon_launches(recorded, sizes, spans, moved, fused) -> tuple:
         if spans and not moved:
             drag = bool(dragged)
             idle = not drag and busy_until <= clock
-            want["chunk_scan"] += 1
-            if not idle:
-                want["toeplitz_conv"] += 1 + drag
-                want["ar_noise"] += drag
+            for k, v in span_want(not idle, idle, drag).items():
+                want[k] += v
             done = [("idle_span" if idle else "span")
                     + ("+drag" if drag else "")]
         else:
@@ -1666,10 +1769,11 @@ def phase_engine(scene, lam64, rng) -> dict:
     fused = engine_stream("(i) fused per block", scene, None, 1, rng)
     span1 = engine_stream("(ii) one-block spans", scene, lam64, 1, rng)
     span4 = engine_stream("(ii) four-block spans", scene, lam64, 4, rng)
-    for name, k in (("fused_block", fused), ("ar_block", fused),
-                    ("chunk_scan", span1), ("toeplitz_conv", span1),
-                    ("ar_noise", span1), ("chunk_scan", span4),
-                    ("toeplitz_conv", span4), ("ar_noise", span4)):
+    span_kernels = ("chunk_scan", "toeplitz_conv", "span_inject",
+                    "span_reduce", "ar_noise")
+    for name, k in ([("fused_block", fused), ("ar_block", fused)]
+                    + [(n, e) for e in (span1, span4)
+                       for n in span_kernels]):
         check(k["launches"][name] > 0, f"an engine stream never launched "
               f"{name}: {k['launches']}")
     offline = live_session(scene, hits=scene["engine_hits"]).render(
@@ -1684,6 +1788,9 @@ def phase_engine(scene, lam64, rng) -> dict:
     for key, db in out.items():
         check(db <= -90.0, f"{key} {db} dB")
     print("engine, first blocks:", json.dumps(out), flush=True)
+    for label, e in (("fused", fused), ("one-block spans", span1),
+                     ("four-block spans", span4)):
+        ENGINE_STATS[label] = {k: e["stats"][k] for k in ("p50_ms", "p99_ms")}
     return {k: sum(e["launches"][k] for e in (fused, span1, span4))
             for k in KERNELS}
 
@@ -2232,8 +2339,7 @@ def phase_binaural_span(scene, hits) -> tuple:
     starts = list(range(1, SPATIAL_BLOCKS, SPAN_DISPATCH))
     busy = sum(1 for b in starts if b * S < expiry)
     check(0 < busy < len(starts), f"{busy} of {len(starts)} spans busy")
-    want = dict.fromkeys(KERNELS, 0)
-    want.update(chunk_scan=len(starts), toeplitz_conv=busy)
+    want = span_want(busy, len(starts) - busy)
     check(counts == want, f"binaural span launches {counts} != {want}")
     for label, mix in (("per-block", per_block), ("span", span_mix)):
         check(mix.shape == (SPATIAL_BLOCKS * S, 2)
@@ -2245,6 +2351,7 @@ def phase_binaural_span(scene, hits) -> tuple:
     g = captured[("toeplitz_conv", "busy")][0]
     check(g.shape[1] == 2, f"the span's conv saw {g.shape[1]} listener rows")
     kernels = check_dispatch_inputs(captured)
+    keep_contraction_inputs("phase 8c, L = 2 complex rows", captured)
     for kind in ("busy", "decay"):
         args = captured[("chunk_scan", kind)]
         got, plain = k1.chunk_scan(*args), k1.chunk_scan_reference(*args)
@@ -2492,7 +2599,8 @@ def phase_spatial_engine(scene, mono, seed) -> tuple:
         out[f"doppler_lookahead_{lookahead}"] = k
         for name in KERNELS:
             launches[name] += k["launches"][name]
-    for name in ("chunk_scan", "toeplitz_conv", "ar_noise"):
+    for name in ("chunk_scan", "toeplitz_conv", "span_inject", "span_reduce",
+                 "ar_noise"):
         check(out["doppler_lookahead_1"]["launches"][name] > 0,
               f"the Doppler stream never launched {name}")
 
@@ -2581,7 +2689,8 @@ def phase_per_client(instances, seed) -> tuple:
     out["world_rows_doppler_db_span_vs_per_block"] = db_error(spanned,
                                                               blocks)
     counts = read_launches()
-    check(counts["chunk_scan"] == 2 and counts["toeplitz_conv"] == 2,
+    check(all(counts[k] == n for k, n in span_want(2, 0).items()
+              if k not in ("fused_block", "ar_block")),
           f"per-client spans launched {counts}")
     for key in ("offsets_db_span_vs_per_block",
                 "world_rows_doppler_db_span_vs_per_block"):
@@ -2624,8 +2733,10 @@ def phase_spatial(dirs, seed) -> dict:
     _, counts = phase_per_client(instances, seed + 4)
     for name in KERNELS:
         launches[name] += counts[name]
-    check(launches["fused_block"] > 0 and launches["chunk_scan"] > 0
-          and launches["toeplitz_conv"] > 0, f"phase 8 launched {launches}")
+    check(all(launches[k] > 0 for k in ("fused_block", "chunk_scan",
+                                        "toeplitz_conv", "span_inject",
+                                        "span_reduce")),
+          f"phase 8 launched {launches}")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
@@ -3331,7 +3442,8 @@ def phase_served_web(scene_json) -> tuple:
           and (not n_quiet
                or out["grown"]["db_before_drag_vs_offline"] <= -90.0),
           f"the grown stream vs offline {out['grown']}")
-    for name in ("chunk_scan", "toeplitz_conv", "ar_noise"):
+    for name in ("chunk_scan", "toeplitz_conv", "span_inject", "span_reduce",
+                 "ar_noise"):
         check(counts[name] > 0, f"9a's stream never launched {name}: "
               f"{counts}")
     print("served web:", json.dumps(out, default=float), flush=True)
@@ -3525,7 +3637,8 @@ def phase_offline_apps(scene, modes, seed) -> tuple:
     fixed = {k: v for k, v in moving.items() if k != "listener"}
     for label, timeline, kernels in (
             ("keyframes", moving, ("fused_block", "ar_block")),
-            ("fixed", fixed, ("chunk_scan", "toeplitz_conv", "ar_noise"))):
+            ("fixed", fixed, ("chunk_scan", "toeplitz_conv", "span_inject",
+                              "span_reduce", "ar_noise"))):
         reset_launches()
         sess = live_session(scene, lam64, smooth=False)
         waves = render_timeline._hit_waves(sess, timeline["events"],
@@ -3918,6 +4031,11 @@ def phase_mesh_spans(scene, lam64, shared, shared_lam, shapes,
                 kern["toeplitz_conv_busy"] = toeplitz_case(
                     "(2, 2) shard, first busy dispatch",
                     *captured[("toeplitz_conv", "busy")], timed=False)
+                for (name, kind), args in sorted(captured.items()):
+                    if name in ("span_inject", "span_reduce"):
+                        kern[f"{name}_{kind}"] = contraction_case(
+                            f"(2, 2) shard, {kind}", name, args)
+                keep_contraction_inputs("(2, 2) shard", captured)
                 res["kernels_on_shard_inputs"] = kern
                 solo = (mesh_session(bank, shape, ffat=ffat, lam64=lam,
                                      tables_from=ref_sess, one_card=True)
@@ -4283,8 +4401,7 @@ def phase_span_forms(label, bank, n_blocks, flat, forms, seed) -> tuple:
     names = ("mix", "z_re", "z_im", "decay mix", "decay z_re",
              "decay z_im")
     ref = form_dispatch(bank, flat, state, gains, n_blocks)
-    want = dict.fromkeys(KERNELS, 0)
-    want.update(chunk_scan=2, toeplitz_conv=1)
+    want = span_want(1, 1)
     check(ref["launches"] == want,
           f"12 {label} flat: launches {ref['launches']} != {want}")
     check(bool(np.isfinite(ref["out"][0]).all())
@@ -4362,7 +4479,7 @@ def phase_forms_shared(bank, lam64, seed) -> tuple:
                                                            + 1),
           "12a: factored or full tables of another shape")
     flat = dataclasses.replace(default, s_re=None, s_im=None)
-    scan2 = dict(chunk_scan=2, toeplitz_conv=1)
+    scan2 = span_want(1, 1)
     out, launches = phase_span_forms("shared", bank, n_blocks, flat, {
         "superchunk": (default, scan2), "factored": (tables["factored"], {}),
         "full": (tables["full"], {})}, seed)
@@ -4412,7 +4529,7 @@ def phase_forms_hetero(bank, lam64, baby, seed) -> tuple:
     check(superchunk.superchunk == 32 and factored.span == n_blocks * S,
           "12b: table shapes")
     out, launches = phase_span_forms("hetero", bank, n_blocks, flat, {
-        "superchunk": (superchunk, dict(chunk_scan=4, toeplitz_conv=1)),
+        "superchunk": (superchunk, dict(span_want(1, 1), chunk_scan=4)),
         "factored": (factored, {})}, seed)
     out["powers_build_s"] = build_s
     del superchunk, factored, flat, s_re, s_im, a_re, a_im
@@ -4573,11 +4690,188 @@ def phase_span_forms_all(scene, hetero, modes, shared, shared_lam, baby,
     return launches
 
 
+def contraction_inputs(tables, k, nl, cplx, seed) -> dict:
+    """A busy span's contraction inputs at ``tables``' shape, made on the
+    card from a seed: span_inject's (f [O, K, N], b e_k) and span_reduce's
+    for g (transfer rows, complex with ``cplx``, against b e_k) and for hom
+    (against chunk starts [O, X, M], the conv added)."""
+    import torch
+    dev = tables.b_re.device
+    c, x, m = tables.chunk, tables.n_chunks, tables.b_re.shape[-1]
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+    be = (randn(O, k, m), randn(O, k, m))
+    t = (randn(O, nl, m), randn(O, nl, m) if cplx else None)
+    tbl = (tables.b_re, tables.b_im)
+    return {"span_inject": (randn(O, k, x * c), *be, *tbl),
+            "g": (*t, *be, *tbl, 0),
+            "hom": (*t, randn(O, x, m), randn(O, x, m), *tbl, 1,
+                    randn(O, nl, x, c))}
+
+
+def library_call(kind, args):
+    """The cuBLAS SGEMM pair of a contraction as one PyTorch matrix
+    product, the yardstick (never called by the port): chunk rows @
+    [b_re | b_im] for span_inject, [w_pr | w_pi] @ [b_re; b_im] for
+    span_reduce, its operands made ahead (the weights' shape, from v)."""
+    import torch
+    if kind == "span_inject":
+        f, _, _, b_re, b_im = args
+        o, k, n = f.shape
+        c = b_re.shape[1] - 1
+        rows = f.reshape(o, k * n // c, c)
+        tbl = torch.cat([b_re[:, :c], b_im[:, :c]], dim=-1)   # [Og, C, 2M]
+        if tbl.shape[0] == 1:
+            rows2, tbl0 = rows.reshape(-1, c), tbl[0]
+            return lambda: rows2 @ tbl0
+        return lambda: torch.bmm(rows, tbl)
+    t_re, _, v_re, _, b_re, b_im, off = args[:7]
+    m = v_re.shape[-1]
+    c = b_re.shape[1] - 1
+    w = torch.cat([v_re.repeat(1, t_re.shape[1], 1)] * 2, dim=-1)
+    tbl = torch.cat([b_re[:, off:off + c], b_im[:, off:off + c]],
+                    dim=-1).transpose(1, 2)                  # [Og, 2M, C]
+    if tbl.shape[0] == 1:
+        w2, tbl0 = w.reshape(-1, 2 * m), tbl[0]
+        return lambda: w2 @ tbl0
+    return lambda: torch.bmm(w, tbl)
+
+
+def contraction_timing(label, kind, args) -> dict:
+    """Phase 13 for one kernel call: contraction_case, then CUDA-event
+    and profiler times beside the twin's, the SGEMM pair's and the bound
+    (bench/roofline.py)."""
+    import torch
+    from openpbso_tpu_torch.bench import roofline
+    name = "span_inject" if kind == "span_inject" else "span_reduce"
+    out = contraction_case(f"{label}, {kind}", name, args)
+    kernel, twin = contraction_call(name)
+    if name == "span_inject":
+        f, _, _, b_re, _ = args
+        o, k, n = f.shape
+        c = b_re.shape[1] - 1
+        bound = roofline.span_inject(o, b_re.shape[0], k, n // c, c,
+                                     b_re.shape[-1])
+    else:
+        t_re, t_im, v_re, _, b_re, _, _, *rest = args
+        o, nl, m = t_re.shape
+        bound = roofline.span_reduce(
+            o, b_re.shape[0], nl, v_re.shape[1], b_re.shape[1] - 1, m,
+            bool(rest and rest[0] is not None), cplx=t_im is not None)
+    out["ms"] = time_ms(lambda: kernel(*args))
+    out["device_ms"] = device_ms(lambda: kernel(*args), CUDA_NAMES[name])
+    out["plain_ms"] = time_ms(lambda: twin(*args), runs=10)
+    call = library_call(kind, args)
+    out["library_ms"] = time_ms(call)
+    del call
+    torch.cuda.empty_cache()
+    out.update(bound_ms=bound["bound_ms"], bound_by=bound["bound_by"],
+               share_bound=bound["bound_ms"] / out["device_ms"],
+               tflops=bound["flops"] / out["device_ms"] / 1e9)
+    print("contraction case:", json.dumps(out), flush=True)
+    return out
+
+
+@contextlib.contextmanager
+def twin_contractions():
+    """While open, the span module calls span_inject's and span_reduce's
+    plain twins (the stage code the kernels replace), on the card too."""
+    from openpbso_tpu_torch.ops import span as span_mod
+    from openpbso_tpu_torch.ops import span_inject as k3
+    from openpbso_tpu_torch.ops import span_reduce as k4
+    originals = span_mod.span_inject, span_mod.span_reduce
+    span_mod.span_inject = k3.span_inject_reference
+    span_mod.span_reduce = k4.span_reduce_reference
+    try:
+        yield
+    finally:
+        span_mod.span_inject, span_mod.span_reduce = originals
+
+
+def dispatch_ab(label, bank, tables, n_blocks, seed) -> dict:
+    """Phase 5's busy dispatch through the twin-composed stages and the
+    kernels, synced, A B B A (twin, kernels, kernels, twin); the two mixes
+    and end states agree to <= -90 dB."""
+    from openpbso_tpu_torch.runtime.solver import default_gains, step_span
+    state = busy_state(bank, seed)
+    gains = default_gains(O, device=bank.device)
+
+    def busy():
+        return step_span(state, bank, tables, gains, n_blocks=n_blocks,
+                         block_size=S, num_slots=1)
+
+    def twin():
+        with twin_contractions():
+            return busy()
+    outs = []
+    for fn in (busy, twin):
+        st, mix = fn()
+        outs.append([x.cpu().numpy() for x in (mix, st.z_re, st.z_im)])
+    dbs = [db_error(a, b) for a, b in zip(*outs)]
+    check(max(dbs) <= -90.0 and float(np.abs(outs[1][0]).max()) > 0,
+          f"13 {label}: kernels vs twins {dbs} dB")
+    a1, b1, b2, a2 = (synced_ms(fn) for fn in (twin, busy, busy, twin))
+    out = {"case": label, "n_blocks": n_blocks, "db_mix_state": dbs,
+           "twin_ms": [a1, a2], "kernel_ms": [b1, b2]}
+    print("contraction dispatch:", json.dumps(out), flush=True)
+    return out
+
+
+def phase_contractions(hetero, lam64, shared, shared_tables, hetero_tables,
+                       seed) -> dict:
+    """Phase 13: span_inject and span_reduce (g, hom) at the main path's
+    shapes, each against its twin and timed beside it, its SGEMM pair and
+    its bound; the whole busy dispatch twin-composed against the kernels,
+    A B B A; 7d's engine p50/p99 as they stand. Returns the shared
+    nb=512 entries (the kernels line's)."""
+    import torch
+    one_block = session_span_tables(hetero, lam64, 1)
+    check((one_block.chunk, one_block.n_chunks) == (64, 8),
+          f"13: one-block tables C={one_block.chunk} X={one_block.n_chunks}")
+    render_span = session_span_tables(hetero, lam64, SPAN_DISPATCH)
+    built = {"shared nb=512": (shared_tables, 1, 1, False),
+             "hetero nb=1024": (hetero_tables, 1, 1, False),
+             "hetero nb=16 (5b's spans)": (render_span, 1, 1, False),
+             "one-block span, full bucket + AR": (one_block, 17, 1, False)}
+    out = {}
+    for i, (label, (tables, k, nl, cplx)) in enumerate(built.items()):
+        inputs = contraction_inputs(tables, k, nl, cplx, seed + i)
+        out[label] = {kind: contraction_timing(label, kind, args)
+                      for kind, args in inputs.items()}
+        del inputs
+        torch.cuda.empty_cache()
+    for label, inputs in CONTRACTION_INPUTS.items():
+        out[label] = {kind: contraction_timing(label, kind, args)
+                      for kind, args in inputs.items()}
+    CONTRACTION_INPUTS.clear()
+    del one_block
+    torch.cuda.empty_cache()
+    dispatch = [dispatch_ab("shared nb=512", shared, shared_tables,
+                            SPAN_CASES[0][1], seed),
+                dispatch_ab("hetero nb=1024", hetero, hetero_tables,
+                            SPAN_CASES[1][1], seed),
+                dispatch_ab("hetero nb=16", hetero, render_span,
+                            SPAN_DISPATCH, seed)]
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip()
+    print("contractions:", json.dumps({
+        "card": smi, "dispatch_ab": dispatch, "engine_7d": ENGINE_STATS,
+        "ms": {label: {kind: e["ms"] for kind, e in v.items()}
+               for label, v in out.items()}}), flush=True)
+    head = out["shared nb=512"]
+    return {"span_inject": head["span_inject"], "span_reduce": head["hom"]}
+
+
 def kernel_bounds(hetero_modes_padded, shared_modes_padded, n_chunks,
                   chunk):
     """Each kernel's bound (bench/roofline.py) at the shape its JSON entry
-    was timed at: fused_block phase 3's hetero block, chunk_scan and
-    toeplitz_conv the shared nb=512 span, ar_noise [O, 512, S] and ar_block
+    was timed at: fused_block phase 3's hetero block, chunk_scan,
+    toeplitz_conv, span_inject and span_reduce (hom) the shared nb=512
+    span, ar_noise [O, 512, S] and ar_block
     O objects. The AR kernels' operations are the instructions per sample
     of ar_noise's main loop in the built library's SASS
     (bench/sass_count.py), at the card's maximum SM clock."""
@@ -4599,6 +4893,10 @@ def kernel_bounds(hetero_modes_padded, shared_modes_padded, n_chunks,
         "ar_noise": roofline.ar_noise(O, SUS_SPAN_BLOCKS, S, per_sample,
                                       clock_hz),
         "ar_block": roofline.ar_block(O, S, per_sample, clock_hz),
+        "span_inject": roofline.span_inject(O, 1, 1, n_chunks, chunk,
+                                            shared_modes_padded),
+        "span_reduce": roofline.span_reduce(O, 1, 1, n_chunks, chunk,
+                                            shared_modes_padded, True),
     }
     print("kernel bounds:", json.dumps(dict(
         out, sm_clock_hz=clock_hz, ar_noise_sass_per_sample=per_sample)),
@@ -4674,10 +4972,17 @@ def run_phases(args, model_pool, model_futures) -> int:
     with phase_clock("11", seconds):
         dataset_launches = phase_dataset(args.seed + 11)
     torch.cuda.empty_cache()
+    hetero_tables = span_cases["hetero"].pop("tables")
     with phase_clock("12", seconds):
         forms_launches = phase_span_forms_all(
-            per_block, hetero, modes[0], shared, shared_lam,
-            span_cases["hetero"].pop("tables"), model_dirs, args.seed + 12)
+            per_block, hetero, modes[0], shared, shared_lam, hetero_tables,
+            model_dirs, args.seed + 12)
+    torch.cuda.empty_cache()
+    with phase_clock("13", seconds):
+        contractions = phase_contractions(
+            hetero, modes[0], shared, span_cases["shared"].pop("tables"),
+            hetero_tables, args.seed + 13)
+    del hetero_tables
 
     head = span_cases[SPAN_CASES[0][0]]
     bounds = kernel_bounds(hetero.num_modes, shared.num_modes,
@@ -4702,6 +5007,11 @@ def run_phases(args, model_pool, model_futures) -> int:
                      device_ms=ar[k]["device_ms"],
                      plain_ms=ar[k]["plain_ms"], library_ms=None)
                 for k, path in (("ar_noise", "span"), ("ar_block", "block"))]
+    kernels += [dict(name=k, launches=span_launches[k],
+                     **{key: contractions[k][key] for key in (
+                         "max_abs_err", "ms", "device_ms", "plain_ms",
+                         "library_ms")})
+                for k in ("span_inject", "span_reduce")]
     for k in kernels:
         k["launches"] += (live_launches[k["name"]]
                           + spatial_launches[k["name"]]

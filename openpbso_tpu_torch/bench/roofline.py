@@ -55,6 +55,37 @@ def toeplitz_conv(o: int, nl: int, k: int, x: int, c: int) -> dict:
                   tf32x3_ms=1e3 * 3 * flops / TF32_FLOPS)
 
 
+def span_inject(o: int, og: int, k: int, x: int, c: int, m: int) -> dict:
+    """inj[o, x, m] = sum_k be_k sum_j lam^(C-1-j) f[o, k, xC + j],
+    complex: 2 x rows x depth x columns FLOPs with O K X rows, depth C and
+    2M columns (re and im); the kernel runs each multiply-add as three
+    TF32 products on the tensor cores (fp32_ms: the same work on the CUDA
+    cores). Reads f, be (re, im) and the table's C rows (re, im; Og = 1
+    for a shared bank), writes inj (re, im)."""
+    flops = 2 * (o * k * x) * c * (2 * m)
+    bytes_ = 4 * (o * k * x * c + 2 * o * k * m + 2 * og * c * m
+                  + 2 * o * x * m)
+    return _bound(bytes_, 1e3 * 3 * flops / TF32_FLOPS, flops=flops,
+                  fp32_ms=1e3 * flops / FP32_FLOPS,
+                  tf32x3_ms=1e3 * 3 * flops / TF32_FLOPS)
+
+
+def span_reduce(o: int, og: int, nl: int, r: int, c: int, m: int,
+                add: bool, cplx: bool = False) -> dict:
+    """out[o, l, r, c] = sum_m w_pr B_re + w_pi B_im (+ add): 2 x rows x
+    depth x columns FLOPs with O L R rows, depth 2M and C columns, as
+    three TF32 products each (fp32_ms: on the CUDA cores); the weights'
+    products are formed on the way in and not counted. Reads the transfer
+    rows (re, and im with ``cplx``), v (re, im), the table's C rows (re,
+    im) and ``add``, writes out."""
+    flops = 2 * (o * nl * r) * (2 * m) * c
+    bytes_ = 4 * ((1 + cplx) * o * nl * m + 2 * o * r * m + 2 * og * c * m
+                  + (1 + add) * o * nl * r * c)
+    return _bound(bytes_, 1e3 * 3 * flops / TF32_FLOPS, flops=flops,
+                  fp32_ms=1e3 * flops / FP32_FLOPS,
+                  tf32x3_ms=1e3 * 3 * flops / TF32_FLOPS)
+
+
 def chunk_scan(o: int, og: int, x: int, m: int, injections: bool) -> dict:
     """z_{x+1} = lam^C z_x + inj[x]: one complex multiply-add (8 flops)
     per (object, chunk, mode); reads z, lam^C and the injections, writes

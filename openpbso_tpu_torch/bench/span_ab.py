@@ -1,0 +1,210 @@
+"""A/B timing of builds of the span's contraction kernels on one NVIDIA GPU.
+
+    python -m openpbso_tpu_torch.bench.span_ab \\
+        [--variant NAME=PATH.cu ...] [--out span_ab.json]
+
+Each variant's source (by default this checkout's csrc/span_inject.cu and
+csrc/span_reduce.cu, named "inject" and "reduce") is built alone with nvcc
+for sm_90a (csrc/ on the include path) into its own library under
+openpbso_tpu_torch/_build/ab/ and called through its C interface: a
+library that exports ``span_inject`` is timed at the injection shapes, one
+that exports ``span_reduce`` at the reduction shapes. At each shape every
+variant is held against the plain twin (dB, bitwise repeatable), then the
+variants of that kernel are timed in turns, in the order A B .. B A, each
+turn the median of 30 CUDA-event-timed launches, beside the bound of
+bench/roofline.py. Prints one JSON line per shape and writes all of them
+to --out. Fails without a CUDA device.
+"""
+from __future__ import annotations
+
+import argparse
+import ctypes
+import json
+import os
+import subprocess
+import sys
+
+from .toeplitz_ab import db_error, time_ms
+
+# name, O, Og (1: shared), K or L, X (rows: chunks), C, and for the
+# reduction whether the conv is added
+INJECT_SHAPES = (
+    ("shared_nb512", 256, 1, 1, 512, 512),
+    ("hetero_nb1024", 256, 256, 1, 1024, 512),
+    ("hetero_nb16", 256, 256, 1, 16, 512),
+    ("shared_nb16", 256, 1, 1, 16, 512),
+    ("span_1block_k17", 256, 256, 17, 8, 64),
+    ("hetero_nb16_k4", 256, 256, 4, 16, 512),
+)
+REDUCE_SHAPES = (   # name, O, Og, L, R, C, add
+    ("hom_shared_nb512", 256, 1, 1, 512, 512, True),
+    ("hom_hetero_nb1024", 256, 256, 1, 1024, 512, True),
+    ("hom_hetero_nb16", 256, 256, 1, 16, 512, True),
+    ("g_hetero", 256, 256, 1, 1, 512, False),
+    ("g_1block_k17", 256, 256, 1, 17, 64, False),
+)
+M = 1024
+
+
+def build(name: str, src: str) -> str:
+    from ..ops import _build
+    out_dir = os.path.join(_build.BUILD_DIR, "ab")
+    os.makedirs(out_dir, exist_ok=True)
+    lib = os.path.join(out_dir, f"{name}.so")
+    flags = [f for f in _build.COMPILE_FLAGS if f != "-c"]
+    proc = subprocess.run([_build.find_nvcc(), *flags, "-I", _build.CSRC,
+                           "-shared", "-o", lib, src],
+                          capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed on {src}:\n{proc.stdout}"
+                           f"{proc.stderr}")
+    print(f"build {name} ({src}):\n{proc.stdout}{proc.stderr}".strip(),
+          flush=True)
+    return lib
+
+
+class Variant:
+    def __init__(self, name: str, src: str):
+        self.name = name
+        self.lib = ctypes.CDLL(build(name, src))
+        p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        self.kind = "inject" if hasattr(self.lib, "span_inject") else "reduce"
+        if self.kind == "inject":
+            self.lib.span_inject.argtypes = ([p] * 5 + [ll] + [p] * 2
+                                             + [i] * 7 + [p])
+            self.lib.span_inject.restype = i
+        else:
+            self.lib.span_reduce.argtypes = ([p] * 6 + [ll] + [p] * 2
+                                             + [i] * 8 + [p])
+            self.lib.span_reduce.restype = i
+
+    def __call__(self, *args):
+        import torch
+        stream = torch.cuda.current_stream().cuda_stream
+        if self.kind == "inject":
+            f, be_re, be_im, b_re, b_im = args
+            o, k, n = f.shape
+            c = b_re.shape[1] - 1
+            out = [torch.empty((o, n // c, M), device=f.device)
+                   for _ in range(2)]
+            stride = 0 if b_re.shape[0] == 1 else b_re.stride(0)
+            err = self.lib.span_inject(
+                f.data_ptr(), be_re.data_ptr(), be_im.data_ptr(),
+                b_re.data_ptr(), b_im.data_ptr(), stride, out[0].data_ptr(),
+                out[1].data_ptr(), o, k, n // c, c, M, 1, 1, stream)
+        else:
+            t_re, t_im, v_re, v_im, b_re, b_im, off, add = args
+            o, nl, _ = t_re.shape
+            r = v_re.shape[1]
+            c = b_re.shape[1] - 1
+            out = torch.empty((o, nl, r, c), device=v_re.device)
+            stride = 0 if b_re.shape[0] == 1 else b_re.stride(0)
+            err = self.lib.span_reduce(
+                t_re.data_ptr(), None, v_re.data_ptr(), v_im.data_ptr(),
+                b_re.data_ptr(), b_im.data_ptr(), stride,
+                None if add is None else add.data_ptr(), out.data_ptr(), o,
+                nl, r, c, M, off, 1, 1, stream)
+        if err:
+            raise RuntimeError(f"{self.name}: CUDA error {err}")
+        return out
+
+
+def inputs(kind, shape, seed, dev):
+    """Random operands at ``shape``; a power table of |lam| < 1."""
+    import torch
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def randn(*s):
+        return torch.randn(s, generator=gen, device=dev)
+    if kind == "inject":
+        _, o, og, k, x, c = shape
+    else:
+        _, o, og, k, x, c, add = shape
+    mag = torch.rand((og, 1, M), generator=gen, device=dev) * 0.01 + 0.99
+    ang = torch.rand((og, 1, M), generator=gen, device=dev) * 3.0
+    pw = torch.arange(c + 1, device=dev, dtype=torch.float32)[None, :, None]
+    b_re = (mag ** pw * torch.cos(ang * pw)).contiguous()
+    b_im = (mag ** pw * torch.sin(ang * pw)).contiguous()
+    if kind == "inject":
+        return (randn(o, k, x * c), randn(o, k, M), randn(o, k, M), b_re,
+                b_im)
+    return (randn(o, k, M), None, randn(o, x, M), randn(o, x, M), b_re,
+            b_im, 1 if add else 0, randn(o, k, x, c) if add else None)
+
+
+def run_shape(kind, shape, variants, seed, dev) -> dict:
+    import torch
+    from ..ops.span_inject import span_inject_reference
+    from ..ops.span_reduce import span_reduce_reference
+    from . import roofline
+    args = inputs(kind, shape, seed, dev)
+    if kind == "inject":
+        twin = span_inject_reference(*args)
+        _, o, og, k, x, c = shape
+        bound = roofline.span_inject(o, og, k, x, c, M)
+    else:
+        twin = [span_reduce_reference(*args)]
+        _, o, og, nl, r, c, add = shape
+        bound = roofline.span_reduce(o, og, nl, r, c, M, add)
+    res = {"shape": shape[0], "kernel": kind, "bound_ms": bound["bound_ms"],
+           "bound_by": bound["bound_by"]}
+    for v in variants:
+        got, again = v(*args), v(*args)
+        got = got if kind == "inject" else [got]
+        again = again if kind == "inject" else [again]
+        torch.cuda.synchronize()
+        res[v.name] = {
+            "bitwise_repeatable": all(torch.equal(a, b)
+                                      for a, b in zip(got, again)),
+            "db_vs_twin": max(db_error(a, t) for a, t in zip(got, twin))}
+    del twin
+    order = variants + variants[::-1]
+    times = {v.name: [] for v in variants}
+    for v in order:
+        times[v.name].append(time_ms(lambda: v(*args)))
+    for v in variants:
+        res[v.name]["ms"] = times[v.name]
+        res[v.name]["share"] = bound["bound_ms"] / min(times[v.name])
+    print(json.dumps(res), flush=True)
+    return res
+
+
+def main(argv=None) -> int:
+    import torch
+    from ..ops import _build
+    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument("--variant", action="append", default=[],
+                        help="NAME=PATH.cu (repeatable)")
+    parser.add_argument("--out", default="span_ab.json")
+    parser.add_argument("--seed", type=int, default=0)
+    args = parser.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("span_ab: no CUDA device", file=sys.stderr)
+        return 1
+    specs = [v.split("=", 1) for v in args.variant] or [
+        ("inject", os.path.join(_build.CSRC, "span_inject.cu")),
+        ("reduce", os.path.join(_build.CSRC, "span_reduce.cu"))]
+    variants = [Variant(name, src) for name, src in specs]
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True).stdout.strip()
+    print(smi, flush=True)
+    dev = torch.device("cuda")
+    out = {"card": smi, "shapes": []}
+    for kind, shapes in (("inject", INJECT_SHAPES),
+                         ("reduce", REDUCE_SHAPES)):
+        vs = [v for v in variants if v.kind == kind]
+        if not vs:
+            continue
+        for i, shape in enumerate(shapes):
+            out["shapes"].append(run_shape(kind, shape, vs, args.seed + i,
+                                           dev))
+            torch.cuda.empty_cache()
+    os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
+    with open(args.out, "w") as fh:
+        json.dump(out, fh, indent=1)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -6,7 +6,8 @@
 // float32 accumulation. The tensor cores' own accumulation truncates, so a
 // kernel restarts its products from zero every few k8 steps and adds them
 // to float32 registers with rounding to nearest. Shared by
-// csrc/toeplitz_conv.cu and csrc/fused_block.cu.
+// csrc/toeplitz_conv.cu, csrc/fused_block.cu, csrc/span_inject.cu and
+// csrc/span_reduce.cu, with the cp.async helpers at the end.
 
 #pragma once
 
@@ -93,6 +94,42 @@ __device__ __forceinline__ void mma3(float (&d)[4], const AFrag& a,
   mma_tf32<kZero>(d, a.lo, bh0, bh1);
   mma_tf32<false>(d, a.hi, bl0, bl1);
   mma_tf32<false>(d, a.hi, bh0, bh1);
+}
+
+// the same four quarters as load_a, unsplit: an operand stored already
+// split (hi and lo planes) in shared memory
+__device__ __forceinline__ void load_a_raw(uint32_t addr, uint32_t (&r)[4]) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+
+// kBytes (16 or 4) from global to shared memory, asynchronously; the bytes
+// past src_bytes are zeroed (src_bytes 0: a masked copy, src any valid
+// address)
+template <int kBytes>
+__device__ __forceinline__ void copy_async(float* dst, const float* src,
+                                           int src_bytes) {
+  if constexpr (kBytes == 16) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                     smem_addr(dst)),
+                 "l"(src), "r"(src_bytes));
+  } else {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                     smem_addr(dst)),
+                 "l"(src), "r"(src_bytes));
+  }
+}
+
+__device__ __forceinline__ void copy_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// wait until at most kPending committed groups are still in flight
+template <int kPending>
+__device__ __forceinline__ void copy_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
 }
 
 }  // namespace tf32x3

@@ -68,6 +68,9 @@
 namespace {
 
 using tf32x3::AFrag;
+using tf32x3::copy_async;
+using tf32x3::copy_commit;
+using tf32x3::copy_wait;
 using tf32x3::load_a;
 using tf32x3::mma_tf32;
 using tf32x3::smem_addr;
@@ -99,25 +102,6 @@ struct Layout {
     total = lo + kGPad + width;
   }
 };
-
-// kBytes-wide copy to shared memory; the bytes past src_bytes are zeroed
-template <int kBytes>
-__device__ __forceinline__ void cp_async(float* dst, const float* src,
-                                         int src_bytes) {
-  if constexpr (kBytes == 16) {
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                     smem_addr(dst)),
-                 "l"(src), "r"(src_bytes));
-  } else {
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
-                     smem_addr(dst)),
-                 "l"(src), "r"(src_bytes));
-  }
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::);
-}
 
 // B fragment of the Toeplitz tile at diagonal offset d = n - j8 (d >= 0):
 // lane (gid, tig) holds T[tig (+4)][gid] = g[8 d + gid - tig (- 4)];
@@ -253,15 +237,15 @@ __device__ __forceinline__ void load_slot(const Args& a, float* smem,
   for (int v = tid; v < kBM * per_row; v += kThreads) {
     const int r = v / per_row, j = (v - r * per_row) * kVec;
     const bool ok = r < rows && j < a.C;   // kVec = 4 only when 4 | C
-    cp_async<4 * kVec>(smem + r * lay.ld + j,
-                       ok ? fk + (long long)r * a.C + j : a.f,
-                       ok ? 4 * kVec : 0);
+    copy_async<4 * kVec>(smem + r * lay.ld + j,
+                         ok ? fk + (long long)r * a.C + j : a.f,
+                         ok ? 4 * kVec : 0);
   }
   const float* gk = a.g + ((long long)ol * a.K + k) * a.C;
   for (int j = tid * kVec; j < lay.width; j += kThreads * kVec) {
     const bool ok = j < a.C;
-    cp_async<4 * kVec>(smem + lay.raw + j, ok ? gk + j : a.g,
-                       ok ? 4 * kVec : 0);
+    copy_async<4 * kVec>(smem + lay.raw + j, ok ? gk + j : a.g,
+                         ok ? 4 * kVec : 0);
   }
 }
 
@@ -309,7 +293,8 @@ __global__ void __launch_bounds__(kThreads, 2)
   for (int k = 0; k < a.K; ++k) {
     if (k > 0) __syncthreads();   // the previous slot's reads are done
     load_slot<kVec>(a, smem, lay, o, ol, k, x0, rows);
-    cp_async_wait_all();
+    copy_commit();
+    copy_wait<0>();
     __syncthreads();              // the slot has landed
     for (int j = tid; j < lay.width; j += kThreads) {
       uint32_t hi, lo;

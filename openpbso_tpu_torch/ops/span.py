@@ -18,8 +18,11 @@ boundaries, and each group's interior starts from matmul-shaped mixing
 (shared banks) or from one more G-step scan over every group at once
 (per-object banks, opt-in). Every serial pass is the recurrence
 ``z <- rot * z + inj`` and runs through one hand-written kernel,
-ops/chunk_scan.py; the within-chunk Toeplitz convolution is the other
-(ops/toeplitz_conv.py).
+ops/chunk_scan.py. The within-chunk Toeplitz convolution is another
+(ops/toeplitz_conv.py), and the mode contractions two more: the
+injections (ops/span_inject.py) and g and hom (ops/span_reduce.py), so a
+busy span is one span_inject, two span_reduce, one toeplitz_conv and the
+scan, and a ring-down the scan and one span_reduce.
 
 **Factored** (``SpanTables``): giant steps A[x] = lam^(xR) and baby steps
 B[r] = lam^r, so every per-sample power is lam^(xR) lam^r and every
@@ -28,10 +31,10 @@ pair over 2N. **Full** (``FullSpanTables``, shared banks only): one
 [M, N+1] table of every power, three matrix-product pairs and the same
 FFT convolution.
 
-The contractions are plain float32 matrix products (``torch.matmul`` for a
-shared bank, batched per object otherwise) and the convolutions of the
-factored and full forms are ``torch.fft`` calls, library work as in the
-JAX package, where XLA computes them outside any Pallas kernel.
+The factored and full forms' contractions are plain float32 matrix
+products (``torch.matmul`` for a shared bank, batched per object
+otherwise) and their convolutions ``torch.fft`` calls, library work as in
+the JAX package, where XLA computes them outside any Pallas kernel.
 """
 from __future__ import annotations
 
@@ -44,7 +47,8 @@ import torch
 from ..device import resolve_device
 from .chunk_scan import chunk_scan
 from .coeffs import ModalBank, _power_table, _to_device, round_up
-from .integrator import _complex_weights
+from .span_inject import _contract_xm, span_inject
+from .span_reduce import _contract_xr, span_reduce
 from .toeplitz_conv import toeplitz_conv
 
 FULL_TABLE_PIECE = 1 << 12    # powers per host piece of the full table
@@ -245,22 +249,6 @@ def build_span_tables(
     return SpanTables(a_re=a_re, a_im=a_im, b_re=b_re, b_im=b_im)
 
 
-def _contract_xr(w: torch.Tensor, tbl: torch.Tensor) -> torch.Tensor:
-    """sum_m w[o,x,m] tbl[og,r,m] -> [o,x,r]; one matmul when shared."""
-    if tbl.shape[0] == 1:
-        o, x, m = w.shape
-        return (w.reshape(o * x, m) @ tbl[0].T).reshape(o, x, -1)
-    return torch.bmm(w, tbl.transpose(1, 2))
-
-
-def _contract_xm(f: torch.Tensor, tbl: torch.Tensor) -> torch.Tensor:
-    """sum_r f[o,x,r] tbl[og,r,m] -> [o,x,m]; one matmul when shared."""
-    if tbl.shape[0] == 1:
-        o, x, r = f.shape
-        return (f.reshape(o * x, r) @ tbl[0]).reshape(o, x, -1)
-    return torch.bmm(f, tbl)
-
-
 def _slot_conv_fft(g: torch.Tensor, f_k: torch.Tensor, n: int) -> torch.Tensor:
     """sum_k causal_conv(g[:, k], f_k[:, k]) via one padded FFT triple
     (conv is linear, so the slot sum happens in the frequency domain).
@@ -378,18 +366,14 @@ def _listener_rows(transfer, transfer_im, bank: ModalBank):
     return (tmask[:, None], None if timask is None else timask[:, None], 1)
 
 
-def _chunk_hom(zs_re, zs_im, t_re, t_im, tables: ChunkSpanTables):
+def _chunk_hom(zs_re, zs_im, t_re, t_im, tables: ChunkSpanTables,
+               conv=None):
     """Every chunk's homogeneous response from its start state,
-    Im(lam^(1..C) t z_x) summed over modes: [O, L, X, C]."""
-    o, x, m = zs_re.shape
-    nl = t_re.shape[1]
-    c = tables.chunk
-    w_pr, w_pi = _complex_weights(
-        t_re[:, :, None, :], None if t_im is None else t_im[:, :, None, :],
-        zs_re[:, None], zs_im[:, None])                    # [O, L, X, M]
-    hom = (_contract_xr(w_pr.reshape(o, nl * x, m), tables.b_re[:, 1:])
-           + _contract_xr(w_pi.reshape(o, nl * x, m), tables.b_im[:, 1:]))
-    return hom.reshape(o, nl, x, c)
+    Im(lam^(1..C) t z_x) summed over modes, plus ``conv`` (the
+    within-chunk convolution) where given: [O, L, X, C]. One span_reduce
+    against table rows 1 .. C."""
+    return span_reduce(t_re, t_im, zs_re, zs_im, tables.b_re, tables.b_im,
+                       1, conv)
 
 
 def _span_sound(parts: torch.Tensor, multi: bool) -> torch.Tensor:
@@ -405,39 +389,28 @@ def _integrate_span_chunked(z_re, z_im, bank, tables: ChunkSpanTables,
     hom and the within-chunk convolution. ``transfer`` may carry a leading
     listener axis ([L, O, M] -> sound [O, L, N], the listener axis inside
     as in the JAX package: every per-object contraction batches on O)."""
-    o, m = z_re.shape
-    k = space_k.shape[1]
+    o, k = space_k.shape[:2]
     c, x = tables.chunk, tables.n_chunks
     b_re, b_im = tables.b_re, tables.b_im
-    t_re, t_im, nl = _listener_rows(transfer, transfer_im, bank)
+    t_re, t_im, _ = _listener_rows(transfer, transfer_im, bank)
     be_re = bank.b_re[:, None, :] * space_k            # [O, K, M]
     be_im = bank.b_im[:, None, :] * space_k
 
     # short per-slot kernels g_k[d] = Im(lam^d t b e_k) . 1, d in [0, C);
-    # complex transfers reshuffle the pre-products (_complex_weights)
-    w_pr, w_pi = _complex_weights(
-        t_re[:, :, None, :], None if t_im is None else t_im[:, :, None, :],
-        be_re[:, None], be_im[:, None])                # [O, L, K, M]
-    g = (_contract_xr(w_pr.reshape(o, nl * k, m), b_re[:, :c])
-         + _contract_xr(w_pi.reshape(o, nl * k, m), b_im[:, :c]))
+    # complex transfers reshuffle the pre-products (_complex_weights,
+    # formed inside span_reduce)
+    g = span_reduce(t_re, t_im, be_re, be_im, b_re, b_im, 0)  # [O, L, K, C]
 
     # within-chunk causal conv, summed over slots
-    fc = f_k.reshape(o, k, x, c)
-    conv = toeplitz_conv(g.reshape(o, nl, k, c), fc)   # [O, L, X, C]
+    conv = toeplitz_conv(g, f_k.reshape(o, k, x, c))   # [O, L, X, C]
 
-    # per-chunk modal force gathers: t_k = sum_j lam^(C-1-j) f_chunk[j]
-    rows = fc.flip(-1).reshape(o, k * x, c)
-    tk_re = _contract_xm(rows, b_re[:, :c]).reshape(o, k, x, m)
-    tk_im = _contract_xm(rows, b_im[:, :c]).reshape(o, k, x, m)
-    inj_re = (be_re[:, :, None, :] * tk_re
-              - be_im[:, :, None, :] * tk_im).sum(dim=1)   # [O, X, M]
-    inj_im = (be_re[:, :, None, :] * tk_im
-              + be_im[:, :, None, :] * tk_re).sum(dim=1)
+    # per-chunk injections: sum_k b e_k sum_j lam^(C-1-j) f_chunk[j]
+    inj_re, inj_im = span_inject(f_k, be_re, be_im, b_re, b_im)
 
     zr_f, zi_f, zs_re, zs_im = _chunk_start_states(z_re, z_im, inj_re,
                                                    inj_im, tables)
-    hom = _chunk_hom(zs_re, zs_im, t_re, t_im, tables)
-    return zr_f, zi_f, _span_sound(hom + conv, transfer.dim() == 3)
+    sound = _chunk_hom(zs_re, zs_im, t_re, t_im, tables, conv)
+    return zr_f, zi_f, _span_sound(sound, transfer.dim() == 3)
 
 
 def _integrate_span_factored(z_re, z_im, bank, tables: SpanTables, space_k,

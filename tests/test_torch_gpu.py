@@ -17,6 +17,8 @@ from openpbso_tpu_torch.ops import ar_block as kb
 from openpbso_tpu_torch.ops import ar_noise as ka
 from openpbso_tpu_torch.ops import chunk_scan as k1
 from openpbso_tpu_torch.ops import fused_integrator as fi
+from openpbso_tpu_torch.ops import span_inject as k3
+from openpbso_tpu_torch.ops import span_reduce as k4
 from openpbso_tpu_torch.ops import toeplitz_conv as k2
 from openpbso_tpu_torch.ops.coeffs import build_modal_bank, lambda_from_modes
 from openpbso_tpu_torch.ops.forces import ar_impulse_g, make_sustained_state
@@ -306,6 +308,124 @@ def test_span_forms_on_the_card_match_flat(cuda, shared, form, scans):
     for g, r in zip(got, ref):
         assert torch.isfinite(g).all()
         assert _db(g, r) <= -90
+
+
+# ------------------------------------------------- the span contractions
+
+
+def _span_table(o, n, c, shared, device, num_modes=None):
+    """A chunked span's baby table (C + 1 powers of real modes)."""
+    return build_span_tables(_modes(o, n, shared)[0], 2 * c, radix=c,
+                             num_modes=num_modes, device=device)
+
+
+@pytest.mark.parametrize("o,k,x,c,n,shared,num_modes", [
+    (3, 1, 8, 64, 200, True, None),       # 16-chunk tile, shared table
+    (2, 3, 40, 512, 300, False, None),    # per-object, slots, ragged tile
+    (4, 17, 8, 64, 40, False, None),      # one-block span, full bucket + AR
+    (2, 1, 33, 192, 100, True, None),     # a 3-block span's chunk, ragged
+    (2, 2, 5, 7, 40, False, None),        # odd chunk: 4-byte copies
+    (3, 2, 20, 64, 40, True, 42),         # 42 modes: 4-byte copies
+    (2, 1, 17, 64, 40, False, 43),        # odd modes: scalar stores
+    (256, 1, 512, 512, 1024, True, None),  # the span headline (nb=512)
+    (70, 1, 20, 64, 1024, True, None),    # shared: 64-row tiles cross objects
+    (70, 3, 20, 64, 1024, True, None),    # and slots, each row its own be
+])
+def test_span_inject_matches_twin(cuda, o, k, x, c, n, shared, num_modes):
+    """The 3xTF32 injection GEMM is FP32-accurate: <= -110 dB against the
+    twin at every shape, bitwise repeatable, one launch a call."""
+    tables = _span_table(o, n, c, shared, cuda, num_modes)
+    m = tables.b_re.shape[-1]
+    rng = np.random.default_rng(11)
+    f = _randn(rng, o, k, x * c, device=cuda)
+    be = [_randn(rng, o, k, m, device=cuda) for _ in range(2)]
+    args = (f, *be, tables.b_re, tables.b_im)
+    before = k3.LAUNCHES
+    got = k3.span_inject(*args)
+    again = k3.span_inject(*args)
+    assert k3.LAUNCHES == before + 2
+    assert got[0].shape == (o, x, m)
+    _assert_kernel_matches_twin(got, again, k3.span_inject_reference(*args),
+                                db=-110)
+
+
+@pytest.mark.parametrize("o,nl,r,c,n,shared,cplx,off,add,num_modes", [
+    (3, 1, 8, 64, 200, True, False, 1, True, None),    # hom, shared
+    (2, 2, 40, 512, 300, False, True, 1, True, None),  # ITD rows, L = 2
+    (4, 1, 17, 64, 40, False, False, 0, False, None),  # g, full bucket + AR
+    (3, 2, 1, 512, 200, True, True, 0, False, None),   # g, one slot
+    (2, 1, 33, 192, 100, True, False, 1, False, None),  # ring-down, ragged
+    (2, 3, 5, 7, 40, False, True, 1, True, None),      # odd chunk: scalars
+    (3, 1, 20, 64, 40, True, False, 1, True, 42),      # 42 modes: scalars
+    (256, 1, 512, 512, 1024, True, False, 1, True, None),  # the headline
+    (256, 2, 20, 512, 200, True, True, 1, True, None),  # tiles cross rows
+])
+def test_span_reduce_matches_twin(cuda, o, nl, r, c, n, shared, cplx, off,
+                                  add, num_modes):
+    """The 3xTF32 mode-reduce GEMM with its weight prologue is
+    FP32-accurate: <= -110 dB against the twin at every shape, bitwise
+    repeatable, one launch a call."""
+    tables = _span_table(o, n, c, shared, cuda, num_modes)
+    m = tables.b_re.shape[-1]
+    rng = np.random.default_rng(12)
+    t_re = _randn(rng, o, nl, m, device=cuda)
+    t_im = _randn(rng, o, nl, m, device=cuda) if cplx else None
+    v = [_randn(rng, o, r, m, device=cuda) for _ in range(2)]
+    extra = _randn(rng, o, nl, r, c, device=cuda) if add else None
+    args = (t_re, t_im, *v, tables.b_re, tables.b_im, off, extra)
+    before = k4.LAUNCHES
+    got = k4.span_reduce(*args)
+    again = k4.span_reduce(*args)
+    assert k4.LAUNCHES == before + 2
+    assert got.shape == (o, nl, r, c)
+    _assert_kernel_matches_twin([got], [again],
+                                [k4.span_reduce_reference(*args)], db=-110)
+
+
+def test_span_kernels_take_unaligned_rows(cuda):
+    """Views that start off a 16-byte boundary take the 4-byte copies."""
+    tables = _span_table(2, 40, 64, False, cuda)
+    m = tables.b_re.shape[-1]
+    rng = np.random.default_rng(13)
+    f = _randn(rng, 2 * 9 * 64 + 1, device=cuda)[1:].reshape(2, 1, 9 * 64)
+    be = [_randn(rng, 2, 1, m, device=cuda) for _ in range(2)]
+    assert f.data_ptr() % 16 != 0
+    args = (f, *be, tables.b_re, tables.b_im)
+    _assert_kernel_matches_twin(k3.span_inject(*args), k3.span_inject(*args),
+                                k3.span_inject_reference(*args), db=-110)
+    t = _randn(rng, 2 * m + 1, device=cuda)[1:].reshape(2, 1, m)
+    v = [_randn(rng, 2, 9, m, device=cuda) for _ in range(2)]
+    args = (t, None, *v, tables.b_re, tables.b_im, 1)
+    _assert_kernel_matches_twin([k4.span_reduce(*args)],
+                                [k4.span_reduce(*args)],
+                                [k4.span_reduce_reference(*args)], db=-110)
+
+
+def test_spans_go_through_the_contraction_kernels(cuda):
+    """A busy span is one span_inject and two span_reduce (g and hom), a
+    ring-down span one span_reduce, beside chunk_scan and toeplitz_conv;
+    the render matches the blocked backend's."""
+    lam, b, v = _modes(6, 40, False)
+    bank = build_modal_bank(lam, b, v, block_size=256, device=cuda)
+    sessions = {
+        "span": ModalSession(bank, config=SolverConfig(block_size=256),
+                             lam64=lam),
+        "blocked": ModalSession(bank, config=SolverConfig(
+            block_size=256, backend="blocked"))}
+    rng = np.random.default_rng(2)
+    for obj in range(6):
+        space = rng.standard_normal(40)
+        for sess in sessions.values():
+            sess.hit(obj, space, kind="gaussian", width_us=600.0,
+                     when=256 * (obj % 3))
+    mods = (k1, k2, k3, k4, fi)
+    before = [mod.LAUNCHES for mod in mods]
+    mix = sessions["span"].render_multi(10, blocks_per_dispatch=4)
+    # one busy dispatch (block 0) and two ring-down ones
+    assert [mod.LAUNCHES - b for mod, b in zip(mods, before)] == [
+        3, 1, 1, 4, 0]
+    assert np.isfinite(mix).all() and np.abs(mix).max() > 0
+    assert _db(mix, sessions["blocked"].render(10)) <= -90
 
 
 # ----------------------------------------------------- sustained channel
