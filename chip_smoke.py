@@ -288,7 +288,7 @@ CUDA_NAMES = {   # name -> the CUDA kernel its wrapper launches
     "fused_block": "fused_block_kernel", "chunk_scan": "chunk_scan_kernel",
     "toeplitz_conv": "toeplitz_conv_tc", "ar_noise": "ar_noise_kernel",
     "ar_block": "ar_block_kernel", "span_inject": "span_inject_tc",
-    "span_reduce": "span_reduce_tc"}
+    "span_reduce": "span_reduce"}
 KERNELS = {   # name -> (source, the TPU kernel or XLA stage it replaces)
     "fused_block": ("openpbso_tpu_torch/csrc/fused_block.cu",
                     "openpbso_tpu/ops/pallas_integrator.py:60"),
@@ -823,13 +823,19 @@ def keep_contraction_inputs(label, captured):
         "hom": captured[("span_reduce", "hom")]}
 
 
+TWIN_ARGS = {"span_inject": 5, "span_reduce": 8}   # the twins' arguments
+
+
 def contraction_call(name):
-    """span_inject's or span_reduce's wrapper and plain twin."""
+    """span_inject's or span_reduce's wrapper and plain twin, the twin
+    called without the planes (the wrappers' last argument: the twin
+    reads the table itself)."""
     from openpbso_tpu_torch.ops import span_inject as k3
     from openpbso_tpu_torch.ops import span_reduce as k4
-    if name == "span_inject":
-        return k3.span_inject, k3.span_inject_reference
-    return k4.span_reduce, k4.span_reduce_reference
+    kernel, twin = ((k3.span_inject, k3.span_inject_reference)
+                    if name == "span_inject"
+                    else (k4.span_reduce, k4.span_reduce_reference))
+    return kernel, lambda *args: twin(*args[:TWIN_ARGS[name]])
 
 
 def contraction_case(label, name, args) -> dict:
@@ -890,9 +896,11 @@ def check_dispatch_inputs(captured) -> dict:
 
 def phase_span_session(bank, lam64, per_block):
     """Phase 5b: phase 4's session and script, built with lam64, rendered
-    by render_multi through the span kernels."""
+    by render_multi through the span kernels; each distinct table's planes
+    built exactly once."""
     import torch
     from openpbso_tpu_torch.config import SAMPLE_RATE
+    from openpbso_tpu_torch.ops import span as span_mod
     ffat, listeners, hits = (per_block[k] for k in ("ffat", "listeners",
                                                     "hits"))
     sizes = {SPAN_DISPATCH, RENDER_BLOCKS % SPAN_DISPATCH} - {0}
@@ -902,6 +910,7 @@ def phase_span_session(bank, lam64, per_block):
     check(0 < busy < n_dispatch, f"{busy} of {n_dispatch} spans are busy")
 
     sess = new_session(bank, ffat, listeners, hits, "auto", lam64=lam64)
+    span_mod.PLANE_BUILDS = 0
     t = time.perf_counter()
     for n in sizes:
         sess.span_tables_for(n)
@@ -913,6 +922,10 @@ def phase_span_session(bank, lam64, per_block):
                                 blocks_per_dispatch=SPAN_DISPATCH)
         render_s = time.perf_counter() - t
         counts = read_launches()
+    # the planes of each distinct table, built once, with the tables
+    tables = len({id(t) for t in sess._span_cache.values()})
+    check(span_mod.PLANE_BUILDS == tables,
+          f"5b: {span_mod.PLANE_BUILDS} plane builds for {tables} tables")
     check(mix.shape == (RENDER_BLOCKS * S, 2), f"span mix shape {mix.shape}")
     check(bool(np.isfinite(mix).all()) and float(np.abs(mix).max()) > 0,
           "span mix not finite or silent")
@@ -941,6 +954,7 @@ def phase_span_session(bank, lam64, per_block):
         "blocks": RENDER_BLOCKS, "blocks_per_dispatch": SPAN_DISPATCH,
         "dispatches": n_dispatch, "busy_dispatches": busy,
         "launches": counts, "db_vs_fused_render": db_fused,
+        "plane_builds": span_mod.PLANE_BUILDS,
         "kernel_db_vs_plain_on_dispatch_inputs": dispatch_db,
         "table_build_s": table_s,
         "first_render_multi_s": render_s,   # includes first-use set-up
@@ -4460,7 +4474,7 @@ def phase_forms_shared(bank, lam64, seed) -> tuple:
     512) and full ([M, N+1]) against flat."""
     import dataclasses
     import torch
-    from openpbso_tpu_torch.ops.span import build_span_tables
+    from openpbso_tpu_torch.ops.span import build_span_tables, with_planes
     n_blocks, m, dev = SPAN_CASES[0][1], bank.num_modes, bank.device
     builds = {}
     tables = {}
@@ -4469,7 +4483,7 @@ def phase_forms_shared(bank, lam64, seed) -> tuple:
         tables[form] = build_span_tables(lam64, n_blocks * S, num_modes=m,
                                          device=dev, form=form)
         builds[form] = time.perf_counter() - t
-    default = tables["auto"]
+    default = with_planes(tables["auto"])   # as a session's tables
     check((default.chunk, default.n_chunks, default.superchunk)
           == (512, 512, 32), "12a: the default tables are not C=512 X=512 "
           f"G=32 ({default.chunk}, {default.n_chunks}, "
@@ -4523,7 +4537,8 @@ def phase_forms_hetero(bank, lam64, baby, seed) -> tuple:
               f"12b: the {form} powers differ from build_span_tables'")
     flat = dataclasses.replace(baby, n_chunks=x)
     superchunk = ChunkSpanTables(b_re=baby.b_re, b_im=baby.b_im,
-                                 n_chunks=x, s_re=s_re, s_im=s_im)
+                                 n_chunks=x, s_re=s_re, s_im=s_im,
+                                 planes=baby.planes)
     factored = SpanTables(a_re=a_re, a_im=a_im, b_re=baby.b_re,
                           b_im=baby.b_im)
     check(superchunk.superchunk == 32 and factored.span == n_blocks * S,
@@ -4694,7 +4709,8 @@ def contraction_inputs(tables, k, nl, cplx, seed) -> dict:
     """A busy span's contraction inputs at ``tables``' shape, made on the
     card from a seed: span_inject's (f [O, K, N], b e_k) and span_reduce's
     for g (transfer rows, complex with ``cplx``, against b e_k) and for hom
-    (against chunk starts [O, X, M], the conv added)."""
+    (against chunk starts [O, X, M], the conv added), each with the
+    tables' planes, as the span module passes them."""
     import torch
     dev = tables.b_re.device
     c, x, m = tables.chunk, tables.n_chunks, tables.b_re.shape[-1]
@@ -4705,10 +4721,11 @@ def contraction_inputs(tables, k, nl, cplx, seed) -> dict:
     be = (randn(O, k, m), randn(O, k, m))
     t = (randn(O, nl, m), randn(O, nl, m) if cplx else None)
     tbl = (tables.b_re, tables.b_im)
-    return {"span_inject": (randn(O, k, x * c), *be, *tbl),
-            "g": (*t, *be, *tbl, 0),
+    check(tables.planes is not None, "13: tables without their planes")
+    return {"span_inject": (randn(O, k, x * c), *be, *tbl, tables.planes),
+            "g": (*t, *be, *tbl, 0, None, tables.planes),
             "hom": (*t, randn(O, x, m), randn(O, x, m), *tbl, 1,
-                    randn(O, nl, x, c))}
+                    randn(O, nl, x, c), tables.planes)}
 
 
 def library_call(kind, args):
@@ -4718,7 +4735,7 @@ def library_call(kind, args):
     span_reduce, its operands made ahead (the weights' shape, from v)."""
     import torch
     if kind == "span_inject":
-        f, _, _, b_re, b_im = args
+        f, _, _, b_re, b_im = args[:5]
         o, k, n = f.shape
         c = b_re.shape[1] - 1
         rows = f.reshape(o, k * n // c, c)
@@ -4745,22 +4762,26 @@ def contraction_timing(label, kind, args) -> dict:
     (bench/roofline.py)."""
     import torch
     from openpbso_tpu_torch.bench import roofline
+    from openpbso_tpu_torch.ops import span_inject as k3
+    from openpbso_tpu_torch.ops import span_reduce as k4
     name = "span_inject" if kind == "span_inject" else "span_reduce"
     out = contraction_case(f"{label}, {kind}", name, args)
     kernel, twin = contraction_call(name)
     if name == "span_inject":
-        f, _, _, b_re, _ = args
+        f, _, _, b_re, _ = args[:5]
         o, k, n = f.shape
-        c = b_re.shape[1] - 1
-        bound = roofline.span_inject(o, b_re.shape[0], k, n // c, c,
-                                     b_re.shape[-1])
+        c, m, og = b_re.shape[1] - 1, b_re.shape[-1], b_re.shape[0]
+        bound = roofline.span_inject(o, og, k, n // c, c, m)
+        out["variant"] = k3.variant_for(o, k, n // c, c, m, og)
     else:
-        t_re, t_im, v_re, _, b_re, _, _, *rest = args
+        t_re, t_im, v_re, _, b_re, _, _, add = args[:8]
         o, nl, m = t_re.shape
-        bound = roofline.span_reduce(
-            o, b_re.shape[0], nl, v_re.shape[1], b_re.shape[1] - 1, m,
-            bool(rest and rest[0] is not None), cplx=t_im is not None)
+        c, og = b_re.shape[1] - 1, b_re.shape[0]
+        bound = roofline.span_reduce(o, og, nl, v_re.shape[1], c, m,
+                                     add is not None, cplx=t_im is not None)
+        out["variant"] = k4.variant_for(o, nl, v_re.shape[1], c, m, og)
     out["ms"] = time_ms(lambda: kernel(*args))
+    out["enqueue_ms"] = enqueue_ms(lambda: kernel(*args))
     out["device_ms"] = device_ms(lambda: kernel(*args), CUDA_NAMES[name])
     out["plain_ms"] = time_ms(lambda: twin(*args), runs=10)
     call = library_call(kind, args)
@@ -4779,11 +4800,9 @@ def twin_contractions():
     """While open, the span module calls span_inject's and span_reduce's
     plain twins (the stage code the kernels replace), on the card too."""
     from openpbso_tpu_torch.ops import span as span_mod
-    from openpbso_tpu_torch.ops import span_inject as k3
-    from openpbso_tpu_torch.ops import span_reduce as k4
     originals = span_mod.span_inject, span_mod.span_reduce
-    span_mod.span_inject = k3.span_inject_reference
-    span_mod.span_reduce = k4.span_reduce_reference
+    span_mod.span_inject = contraction_call("span_inject")[1]
+    span_mod.span_reduce = contraction_call("span_reduce")[1]
     try:
         yield
     finally:
@@ -4794,9 +4813,11 @@ def dispatch_ab(label, bank, tables, n_blocks, seed) -> dict:
     """Phase 5's busy dispatch through the twin-composed stages and the
     kernels, synced, A B B A (twin, kernels, kernels, twin); the two mixes
     and end states agree to <= -90 dB."""
+    from openpbso_tpu_torch.ops import span as span_mod
     from openpbso_tpu_torch.runtime.solver import default_gains, step_span
     state = busy_state(bank, seed)
     gains = default_gains(O, device=bank.device)
+    builds = span_mod.PLANE_BUILDS
 
     def busy():
         return step_span(state, bank, tables, gains, n_blocks=n_blocks,
@@ -4813,6 +4834,8 @@ def dispatch_ab(label, bank, tables, n_blocks, seed) -> dict:
     check(max(dbs) <= -90.0 and float(np.abs(outs[1][0]).max()) > 0,
           f"13 {label}: kernels vs twins {dbs} dB")
     a1, b1, b2, a2 = (synced_ms(fn) for fn in (twin, busy, busy, twin))
+    check(span_mod.PLANE_BUILDS == builds,
+          f"13 {label}: the dispatches built planes of cached tables")
     out = {"case": label, "n_blocks": n_blocks, "db_mix_state": dbs,
            "twin_ms": [a1, a2], "kernel_ms": [b1, b2]}
     print("contraction dispatch:", json.dumps(out), flush=True)
@@ -4861,7 +4884,9 @@ def phase_contractions(hetero, lam64, shared, shared_tables, hetero_tables,
     print("contractions:", json.dumps({
         "card": smi, "dispatch_ab": dispatch, "engine_7d": ENGINE_STATS,
         "ms": {label: {kind: e["ms"] for kind, e in v.items()}
-               for label, v in out.items()}}), flush=True)
+               for label, v in out.items()},
+        "variant": {label: {kind: e["variant"] for kind, e in v.items()}
+                    for label, v in out.items()}}), flush=True)
     head = out["shared nb=512"]
     return {"span_inject": head["span_inject"], "span_reduce": head["hom"]}
 

@@ -1,19 +1,36 @@
 """A/B timing of builds of the span's contraction kernels on one NVIDIA GPU.
 
     python -m openpbso_tpu_torch.bench.span_ab \\
-        [--variant NAME=PATH.cu ...] [--out span_ab.json]
+        [--variant NAME=PATH.cu[@VARIANT] ...] [--restarts 4,8,16]
+        [--out span_ab.json]
 
 Each variant's source (by default this checkout's csrc/span_inject.cu and
 csrc/span_reduce.cu, named "inject" and "reduce") is built alone with nvcc
 for sm_90a (csrc/ on the include path) into its own library under
-openpbso_tpu_torch/_build/ab/ and called through its C interface: a
+openpbso_tpu_torch/_build/ab/ and called through its own C interface: a
 library that exports ``span_inject`` is timed at the injection shapes, one
-that exports ``span_reduce`` at the reduction shapes. At each shape every
-variant is held against the plain twin (dB, bitwise repeatable), then the
-variants of that kernel are timed in turns, in the order A B .. B A, each
-turn the median of 30 CUDA-event-timed launches, beside the bound of
-bench/roofline.py. Prints one JSON line per shape and writes all of them
-to --out. Fails without a CUDA device.
+that exports ``span_reduce`` at the reduction shapes. A source that takes
+the table's planes (this checkout's: ops/span.py::span_planes, made once a
+shape, and the variant that ops/span_*.py::variant_for picks for the
+shape, or the one named after ``@``: mma16, mma64, wgmma, fp32) is called
+with them; an older one (the first version's, which reads the table
+alone) without. At each shape every variant is held against the plain
+twin (dB, bitwise repeatable; a variant that cannot take the shape is
+reported and not timed), then the variants of that kernel are timed in
+turns, in the order A B .. B A, each turn the median of 30
+CUDA-event-timed launches, beside the bound of bench/roofline.py.
+``--restarts`` also gives, for each variant that takes the planes, its dB
+at each of those restart intervals (k8 steps; ops/span_*.py::RESTART_K8).
+Prints one JSON line per shape and writes all of them to --out. Fails
+without a CUDA device.
+
+Compare the first version with this one:
+
+    git show 99d047a:openpbso_tpu_torch/csrc/span_inject.cu \
+        > _scratch/ab/v1_inject.cu
+    python -m openpbso_tpu_torch.bench.span_ab \\
+        --variant v1=_scratch/ab/v1_inject.cu \\
+        --variant v2=openpbso_tpu_torch/csrc/span_inject.cu
 """
 from __future__ import annotations
 
@@ -26,8 +43,7 @@ import sys
 
 from .toeplitz_ab import db_error, time_ms
 
-# name, O, Og (1: shared), K or L, X (rows: chunks), C, and for the
-# reduction whether the conv is added
+# name, O, Og (1: shared), K, X (rows: chunks), C
 INJECT_SHAPES = (
     ("shared_nb512", 256, 1, 1, 512, 512),
     ("hetero_nb1024", 256, 256, 1, 1024, 512),
@@ -40,6 +56,7 @@ REDUCE_SHAPES = (   # name, O, Og, L, R, C, add
     ("hom_shared_nb512", 256, 1, 1, 512, 512, True),
     ("hom_hetero_nb1024", 256, 256, 1, 1024, 512, True),
     ("hom_hetero_nb16", 256, 256, 1, 16, 512, True),
+    ("g_shared", 256, 1, 1, 1, 512, False),
     ("g_hetero", 256, 256, 1, 1, 512, False),
     ("g_1block_k17", 256, 256, 1, 17, 64, False),
 )
@@ -66,20 +83,27 @@ def build(name: str, src: str) -> str:
 class Variant:
     def __init__(self, name: str, src: str):
         self.name = name
+        src, _, self.forced = src.partition("@")
         self.lib = ctypes.CDLL(build(name, src))
+        with open(src) as fh:
+            self.planes = "lo_re" in fh.read()   # this version's interface
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         self.kind = "inject" if hasattr(self.lib, "span_inject") else "reduce"
         if self.kind == "inject":
-            self.lib.span_inject.argtypes = ([p] * 5 + [ll] + [p] * 2
-                                             + [i] * 7 + [p])
+            self.lib.span_inject.argtypes = (
+                [p] * 9 + [ll] + [p] * 2 + [i] * 9 + [p] if self.planes
+                else [p] * 5 + [ll] + [p] * 2 + [i] * 7 + [p])
             self.lib.span_inject.restype = i
         else:
-            self.lib.span_reduce.argtypes = ([p] * 6 + [ll] + [p] * 2
-                                             + [i] * 8 + [p])
+            self.lib.span_reduce.argtypes = (
+                [p] * 8 + [ll] + [p] * 2 + [i] * 10 + [p] if self.planes
+                else [p] * 6 + [ll] + [p] * 2 + [i] * 8 + [p])
             self.lib.span_reduce.restype = i
 
-    def __call__(self, *args):
+    def __call__(self, args, planes):
         import torch
+        from ..ops import span_inject as k3
+        from ..ops import span_reduce as k4
         stream = torch.cuda.current_stream().cuda_stream
         if self.kind == "inject":
             f, be_re, be_im, b_re, b_im = args
@@ -88,10 +112,18 @@ class Variant:
             out = [torch.empty((o, n // c, M), device=f.device)
                    for _ in range(2)]
             stride = 0 if b_re.shape[0] == 1 else b_re.stride(0)
-            err = self.lib.span_inject(
-                f.data_ptr(), be_re.data_ptr(), be_im.data_ptr(),
-                b_re.data_ptr(), b_im.data_ptr(), stride, out[0].data_ptr(),
-                out[1].data_ptr(), o, k, n // c, c, M, 1, 1, stream)
+            head = [f.data_ptr(), be_re.data_ptr(), be_im.data_ptr(),
+                    b_re.data_ptr(), b_im.data_ptr()]
+            tail = [o, k, n // c, c, M, 1, 1]
+            if self.planes:
+                v = self.forced or k3.variant_for(o, k, n // c, c, M,
+                                                  b_re.shape[0])
+                head += [planes.bt_re.data_ptr(), planes.bt_im.data_ptr(),
+                         planes.bt_lo_re.data_ptr(),
+                         planes.bt_lo_im.data_ptr()]
+                tail += [k3.VARIANTS.index(v), k3.RESTART_K8]
+            err = self.lib.span_inject(*head, stride, out[0].data_ptr(),
+                                       out[1].data_ptr(), *tail, stream)
         else:
             t_re, t_im, v_re, v_im, b_re, b_im, off, add = args
             o, nl, _ = t_re.shape
@@ -99,11 +131,17 @@ class Variant:
             c = b_re.shape[1] - 1
             out = torch.empty((o, nl, r, c), device=v_re.device)
             stride = 0 if b_re.shape[0] == 1 else b_re.stride(0)
+            head = [t_re.data_ptr(), None, v_re.data_ptr(), v_im.data_ptr(),
+                    b_re.data_ptr(), b_im.data_ptr()]
+            tail = [o, nl, r, c, M, off, 1, 1]
+            if self.planes:
+                v = self.forced or k4.variant_for(o, nl, r, c, M,
+                                                  b_re.shape[0])
+                head += [planes.lo_re.data_ptr(), planes.lo_im.data_ptr()]
+                tail += [k4.VARIANTS.index(v), k4.RESTART_K8]
             err = self.lib.span_reduce(
-                t_re.data_ptr(), None, v_re.data_ptr(), v_im.data_ptr(),
-                b_re.data_ptr(), b_im.data_ptr(), stride,
-                None if add is None else add.data_ptr(), out.data_ptr(), o,
-                nl, r, c, M, off, 1, 1, stream)
+                *head, stride, None if add is None else add.data_ptr(),
+                out.data_ptr(), *tail, stream)
         if err:
             raise RuntimeError(f"{self.name}: CUDA error {err}")
         return out
@@ -132,24 +170,34 @@ def inputs(kind, shape, seed, dev):
             b_im, 1 if add else 0, randn(o, k, x, c) if add else None)
 
 
-def run_shape(kind, shape, variants, seed, dev) -> dict:
+def run_shape(kind, shape, variants, seed, dev, restarts=()) -> dict:
     import torch
-    from ..ops.span_inject import span_inject_reference
-    from ..ops.span_reduce import span_reduce_reference
+    from ..ops import span_inject as k3
+    from ..ops import span_reduce as k4
+    from ..ops.span import span_planes
     from . import roofline
     args = inputs(kind, shape, seed, dev)
     if kind == "inject":
-        twin = span_inject_reference(*args)
+        twin = k3.span_inject_reference(*args)
         _, o, og, k, x, c = shape
         bound = roofline.span_inject(o, og, k, x, c, M)
+        variant = k3.variant_for(o, k, x, c, M, og)
     else:
-        twin = [span_reduce_reference(*args)]
+        twin = [k4.span_reduce_reference(*args)]
         _, o, og, nl, r, c, add = shape
         bound = roofline.span_reduce(o, og, nl, r, c, M, add)
+        variant = k4.variant_for(o, nl, r, c, M, og)
+    planes = span_planes(*(args[3:5] if kind == "inject" else args[4:6]))
     res = {"shape": shape[0], "kernel": kind, "bound_ms": bound["bound_ms"],
-           "bound_by": bound["bound_by"]}
+           "bound_by": bound["bound_by"], "variant": variant}
+    mod = k3 if kind == "inject" else k4
+    taken = []
     for v in variants:
-        got, again = v(*args), v(*args)
+        try:
+            got, again = v(args, planes), v(args, planes)
+        except RuntimeError as err:   # a forced variant refused the shape
+            res[v.name] = {"refused": str(err)}
+            continue
         got = got if kind == "inject" else [got]
         again = again if kind == "inject" else [again]
         torch.cuda.synchronize()
@@ -157,12 +205,22 @@ def run_shape(kind, shape, variants, seed, dev) -> dict:
             "bitwise_repeatable": all(torch.equal(a, b)
                                       for a, b in zip(got, again)),
             "db_vs_twin": max(db_error(a, t) for a, t in zip(got, twin))}
+        if v.planes and restarts:
+            kept, sweep = mod.RESTART_K8, {}
+            for k8 in restarts:
+                mod.RESTART_K8 = k8
+                out = v(args, planes)
+                sweep[k8] = max(db_error(a, t) for a, t in zip(
+                    out if kind == "inject" else [out], twin))
+            mod.RESTART_K8 = kept
+            res[v.name]["db_by_restart_k8"] = sweep
+        taken.append(v)
     del twin
-    order = variants + variants[::-1]
-    times = {v.name: [] for v in variants}
+    order = taken + taken[::-1]
+    times = {v.name: [] for v in taken}
     for v in order:
-        times[v.name].append(time_ms(lambda: v(*args)))
-    for v in variants:
+        times[v.name].append(time_ms(lambda: v(args, planes)))
+    for v in taken:
         res[v.name]["ms"] = times[v.name]
         res[v.name]["share"] = bound["bound_ms"] / min(times[v.name])
     print(json.dumps(res), flush=True)
@@ -174,7 +232,9 @@ def main(argv=None) -> int:
     from ..ops import _build
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--variant", action="append", default=[],
-                        help="NAME=PATH.cu (repeatable)")
+                        help="NAME=PATH.cu[@VARIANT] (repeatable)")
+    parser.add_argument("--restarts", default="",
+                        help="restart intervals (k8 steps) to give dB at")
     parser.add_argument("--out", default="span_ab.json")
     parser.add_argument("--seed", type=int, default=0)
     args = parser.parse_args(argv)
@@ -197,8 +257,9 @@ def main(argv=None) -> int:
         if not vs:
             continue
         for i, shape in enumerate(shapes):
-            out["shapes"].append(run_shape(kind, shape, vs, args.seed + i,
-                                           dev))
+            out["shapes"].append(run_shape(
+                kind, shape, vs, args.seed + i, dev,
+                [int(k) for k in args.restarts.split(",") if k]))
             torch.cuda.empty_cache()
     os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
     with open(args.out, "w") as fh:

@@ -65,7 +65,10 @@ def ffat_from_numpy(src, device=None) -> FFATMaps:
 def span_tables_from_numpy(src, device=None):
     """JAX span tables of any form as the port's: ``ChunkSpanTables`` with
     their superchunk powers (``s_re``/``s_im``, None when absent),
-    ``SpanTables`` and ``FullSpanTables``, told apart by their fields."""
+    ``SpanTables`` and ``FullSpanTables``, told apart by their fields.
+    Chunk tables come without their SpanPlanes: those are made where the
+    tables are used (ops/span.py::with_planes, a session's
+    span_tables_for), from the tables on that device."""
     device = resolve_device(device)
     if hasattr(src, "p_re"):
         return FullSpanTables(p_re=_t(src.p_re, device),

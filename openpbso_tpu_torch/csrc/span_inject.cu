@@ -20,50 +20,55 @@
 // X = C = 512 and M = 1024 that is 275 GFLOP: 1.67 ms as three TF32
 // products at the data sheet's 495 TFLOP/s (4.1 ms in FP32 on the CUDA
 // cores), against ~1.35 GB of f in and inj out (0.40 ms at 3.35 TB/s), so
-// operations bound it (bench/roofline.py::span_inject). mma.sync reaches
-// ~322 TFLOP/s of TF32 on the card (bench/mma_rate.py): 2.6 ms is this
-// design's ceiling.
+// operations bound it (bench/roofline.py::span_inject).
 //
 // Precision: float32 in, float32 out, FP32-accurate. Both operands are
-// split into two TF32 numbers as their fragments are loaded, x = hi + lo
-// (f by rounding, the table by truncation: two instructions), and each
-// product is a_lo b_hi + a_hi b_lo + a_hi b_hi (tf32x3.cuh). The tensor
-// cores' float32 accumulation truncates, so each stage's products (four
-// k8 steps) start from zero and are added to float32 registers with
-// rounding to nearest; the epilogue forms be_re t_re - be_im t_im and
-// be_re t_im + be_im t_re in the twin's order and adds them to the
-// injection. Admitted by the measured error against the FP32
-// twin (<= -110 dB, chip_smoke.py, tests/test_torch_gpu.py); the TF32 pin
-// of precision.py stays.
+// split into two TF32 numbers, x = hi + lo (f by rounding, the table by
+// truncation), and each product is a_lo b_hi + a_hi b_lo + a_hi b_hi. The
+// tensor cores' float32 accumulation truncates, so the products restart
+// from zero every ``restart`` k8 steps and are added to float32 registers
+// with rounding to nearest (one slot), or multiplied by their slot's be_k
+// and added to the injection (more slots); the complex products are
+// be_re t_re - be_im t_im and be_re t_im + be_im t_re in the twin's order.
+// Admitted by the measured error against the FP32 twin (<= -110 dB,
+// chip_smoke.py, tests/test_torch_gpu.py). No [O, K, X, M] tensor is
+// formed; no atomics, a fixed reduction order: two runs are bitwise equal.
 //
-// Design: the injection rows (o, x) that share a table are one GEMM: all O
-// X rows for a shared bank, each object's X rows for per-object tables.
-// One block of eight warps takes a tile of kBM of them and kBN = 64 modes;
-// the grid puts the mode tiles that read one f tile next to each other.
-// The block walks the C samples in stages of kBK = 32 and, within each,
-// its slots, double-buffered through shared memory by cp.async: each
-// slot's f rows (kBM rows x 32 samples), and once for all slots the table
-// rows lam^(C-1-j) of the samples j, re and im (32 rows x 64 modes). The
-// table rows are fetched in reverse, so no flipped copy of f exists. Each warp owns a 32 x 16 tile
-// of (rows, modes) (16 x 8 for the one-block span's few chunks a table,
-// or where 64-row blocks would not fill the card) and holds two
-// accumulators, re and im, that share each A fragment (ldmatrix from f
-// rows 36 words apart, conflict-free); the B fragments come from table
-// rows 72 words apart (8 mod 32: the 32 lanes hit 32 banks). With one
-// slot the stages' products are summed into t_0, whose complex product
-// with each row's be_0 is the injection; with more, each stage's products
-// are multiplied by their slot's be_k and added to the injection. It is
-// written once at the end. No [O, K, X, M] tensor is formed; no atomics,
-// a fixed reduction order: two runs are bitwise equal.
+// Two designs, chosen by the wrapper from the shape alone
+// (ops/span_inject.py::variant_for):
 //
-// Measured (bench/span_ab.py, NVIDIA H100 80GB HBM3, 700 W; PERF.md): 5.69
-// ms at 256 objects, X = C = 512, 29% of the bound, against 6.44 for the
-// first build, which split the table by rounding and multiplied every
-// stage's products by be_k. A ring of three stages with one barrier each
-// (5.98 ms against 5.76), one block an SM (8.05) and truncating f's split
-// too (within the spread, -122.8 dB) did not help. Slots inside the
-// sample stages took the one-block span with 17 slots (C = 64) from 0.81
-// to 0.58 ms.
+// wgmma (variant wgmma): the asynchronous pipeline. The table operand is
+// the K-major reversed copy bt[og, m, j] = lam^(C-1-j)[m] and its lo
+// plane, re and im (ops/span.py::span_planes, made once with the tables:
+// wgmma reads TF32 operands K-major only, and the table [C+1, M] is
+// M-major). One block takes 128 injection rows (o, x) of one table and 64
+// modes; a ring of four stages of 32 samples each (two sub-tiles of 16),
+// guarded by full and empty mbarriers. A producer warp (its warpgroup
+// lowered to 40 registers) keeps TMA loads in flight: each sub-tile's f
+// rows of one slot ([O, K, X, C] as a 4-d tensor: a box of chunks of one
+// object, or of whole objects' chunks where X is short) and the four bt
+// planes' 64 modes, 16 floats a row with the 64-byte swizzle. Two
+// consumer warpgroups (232 registers) split their 64 f rows in registers
+// and feed them to wgmma m64n64k8 TF32 as A from registers, the re and im
+// products sharing each A fragment. The stages walk the slots, each
+// slot's samples in turn.
+//
+// Measured (bench/span_ab.py, NVIDIA H100 80GB HBM3, 700 W; PERF.md):
+// 3.05-3.19 ms at 256 objects, X = C = 512, against 5.69-5.74 for the
+// mma design; stages of one 16-sample sub-tile took 3.65-3.71. Neither a
+// ping-pong of the two consumer warpgroups (named barriers) nor a second
+// set of A registers with one product group kept in flight helped (3.68,
+// 4.84 ms).
+//
+// mma (variants mma16, mma64; the design of the first version): one block
+// of eight warps takes 16 or 64 rows and 64 modes, the stages of 32
+// samples double-buffered through shared memory by cp.async, the table
+// rows fetched in reverse and split in registers, mma.sync m16n8k8, the
+// slots inside the sample stages (a table stage fetched once for every
+// slot). It stays for per-object tables with few chunks (the one-block
+// span's X = 8, hetero short spans), where 128-row wgmma tiles would stay
+// mostly empty, for calls too small to fill the card with them, and for
+// chunks the TMA cannot stride (C not a multiple of 4).
 //
 // Plain C interface (loaded with ctypes); the launch goes on the stream
 // passed in, and the first error is returned as a cudaError_t.
@@ -71,6 +76,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
 #include "tf32x3.cuh"
 
 namespace {
@@ -373,16 +379,6 @@ __global__ void __launch_bounds__(kThreads, 2)
       }
 }
 
-constexpr int kFullWave = 2 * 132;   // two blocks on each SM of an H100
-
-// The block shape for ``groups`` tables of ``rows`` injection rows each:
-// 64 rows a block where that fills the card, else 16 (the one-block span's
-// few chunks of a per-object table, or a grid too small for 64)
-bool small_tiles(int rows, int groups, int m_tiles) {
-  const long long big = (rows + Tile<2, 2>::kBM - 1) / Tile<2, 2>::kBM;
-  return rows <= 16 || big * groups * m_tiles < kFullWave;
-}
-
 // (rows of a group, groups): a shared table is one group of every row
 void row_groups(int O, int X, long long tbl_stride, int& rows, int& groups) {
   rows = tbl_stride == 0 ? O * X : X;
@@ -404,37 +400,378 @@ int launch(const Args& a, long long blocks, void* stream) {
 
 }  // namespace
 
+// ------------------------------------------------------------------ wgmma
+
+namespace wg {
+
+using hopper::desc_sw64;
+using hopper::mbar_arrive;
+using hopper::mbar_wait;
+using hopper::smem_u32;
+using hopper::swz64;
+
+constexpr int kBN = 64;       // modes a block
+constexpr int kBK = 16;       // samples a sub-tile (64-byte rows)
+constexpr int kSub = 2;       // sub-tiles a stage
+constexpr int kStages = 4;
+constexpr int kProducerRegs = 40, kConsumerRegs = 232;
+
+// two consumer warpgroups of 64 rows each, after one producer warpgroup
+struct Cfg {
+  static constexpr int kCons = 2;
+  static constexpr int kBM = 64 * kCons;
+  static constexpr int kThreads = 128 * (kCons + 1);
+  static constexpr int kF = kBM * 64;     // bytes of a sub-tile's f rows
+  static constexpr int kTab = kBN * 64;   // of one table plane's
+  // a sub-tile: f, then bt_re, bt_im, bt_lo_re, bt_lo_im; kSub a stage
+  static constexpr int kSubBytes = kF + 4 * kTab;
+  static constexpr int kStage = kSub * kSubBytes;
+  static constexpr int kSmem = kStages * kStage + 1024 + 16 * kStages;
+};
+
+struct Maps {
+  CUtensorMap f;                            // [O, K, X, C]
+  CUtensorMap bt_re, bt_im, lo_re, lo_im;   // [Og, M, C]
+};
+
+struct Args {
+  const float *be_re, *be_im;   // [O, K, M]
+  float *inj_re, *inj_im;       // [O, X, M]
+  int O, K, X, C, M;
+  int shared;
+  // a tile's rows: xb chunks of each of ob objects (ob > 1 only for a
+  // shared table with X < the tile), tpo tiles an object
+  int xb, ob, tpo;
+  int r_tiles, m_tiles;
+  int restart;   // stages between restarts of the products
+  int pairs;     // float2 stores
+};
+
+__device__ __forceinline__ float lds(const unsigned char* tile, int off) {
+  return *reinterpret_cast<const float*>(tile + off);
+}
+
+// acc += be_k p (complex) for the rows of ``obj`` (their o K, -1 when
+// past the tile) at columns m_base + 8 j + 2 tig + e, in the twin's order:
+// be_re t_re - be_im t_im, be_re t_im + be_im t_re
+__device__ __forceinline__ void slot_sum(const Args& a, const int (&obj)[2],
+                                         int k, int m_base,
+                                         const float (&p_re)[32],
+                                         const float (&p_im)[32],
+                                         float (&acc_re)[32],
+                                         float (&acc_im)[32]) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    if (obj[h] < 0) continue;
+    const long long be = ((long long)obj[h] + k) * a.M;
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int m = m_base + 8 * j + e;
+        const float br = m < a.M ? __ldg(a.be_re + be + m) : 0.f;
+        const float bi = m < a.M ? __ldg(a.be_im + be + m) : 0.f;
+        const int i = 4 * j + 2 * h + e;
+        acc_re[i] += __fsub_rn(__fmul_rn(br, p_re[i]), __fmul_rn(bi, p_im[i]));
+        acc_im[i] += __fadd_rn(__fmul_rn(br, p_im[i]), __fmul_rn(bi, p_re[i]));
+      }
+  }
+}
+
+__global__ void __launch_bounds__(Cfg::kThreads, 1)
+    span_inject_tc_wg(const __grid_constant__ Maps maps, const Args a) {
+  using G = Cfg;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  const uint32_t bars = smem_u32(smem + kStages * G::kStage);
+  auto full = [&](int i) { return bars + 8 * i; };
+  auto empty = [&](int i) { return bars + 8 * (kStages + i); };
+
+  int bid = blockIdx.x;
+  const int mt = bid % a.m_tiles;
+  const int rt = bid / a.m_tiles;
+  const int m0 = mt * kBN;
+  const int o0 = rt / a.tpo * a.ob, x0 = rt % a.tpo * a.xb;
+  const int og = a.shared ? 0 : o0;
+  const int per_slot = (a.C + kSub * kBK - 1) / (kSub * kBK);
+  const int stages = a.K * per_slot;
+
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < kStages; ++i) {
+      hopper::mbar_init(full(i), 1);
+      hopper::mbar_init(empty(i), 4 * G::kCons);   // one arrive a warp
+    }
+    hopper::mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (threadIdx.x < 128) {   // the producer warpgroup
+    hopper::regs_dec<kProducerRegs>();
+    if (threadIdx.x == 0) {
+      const uint32_t bytes = a.xb * a.ob * 64 + 4 * G::kTab;
+      for (int s = 0; s < stages; ++s) {
+        const int slot = s % kStages;
+        const int k = s / per_slot, j = (s - k * per_slot) * kSub * kBK;
+        mbar_wait(empty(slot), ((s / kStages) & 1) ^ 1);
+        const uint32_t bar = full(slot);
+        // sub-tiles past C are neither brought nor read
+        const int subs = min(kSub, (a.C - j + kBK - 1) / kBK);
+        hopper::mbar_expect(bar, subs * bytes);
+        for (int u = 0; u < subs; ++u) {
+          const int j0 = j + u * kBK;
+          const uint32_t st = smem_u32(smem + slot * G::kStage +
+                                       u * G::kSubBytes);
+          hopper::tma_load_4d(st, &maps.f, bar, j0, x0, k, o0);
+          const uint32_t sb = st + G::kF;
+          hopper::tma_load_3d(sb, &maps.bt_re, bar, j0, m0, og);
+          hopper::tma_load_3d(sb + G::kTab, &maps.bt_im, bar, j0, m0, og);
+          hopper::tma_load_3d(sb + 2 * G::kTab, &maps.lo_re, bar, j0, m0,
+                              og);
+          hopper::tma_load_3d(sb + 3 * G::kTab, &maps.lo_im, bar, j0, m0,
+                              og);
+        }
+      }
+    }
+    return;
+  }
+
+  // a consumer warpgroup: rows 64 cw .. 64 cw + 63 of the tile
+  hopper::regs_inc<kConsumerRegs>();
+  const int tid = threadIdx.x - 128;
+  const int cw = tid / 128, warp = (tid / 32) % 4, lane = tid % 32;
+  const int gid = lane >> 2, tig = lane & 3;
+  const int ra = cw * 64 + warp * 16 + gid, rb = ra + 8;
+  // each row's (o, x), its o K for be_k (-1 past the tile) and flat row
+  int obj[2], flat[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int i = h ? rb : ra;
+    const int o = o0 + i / a.xb, x = x0 + i % a.xb;
+    const bool ok = i < a.xb * a.ob && x < a.X && o < a.O;
+    obj[h] = ok ? o * a.K : -1;
+    flat[h] = ok ? o * a.X + x : -1;
+  }
+  const int m_base = m0 + 2 * tig;
+
+  // one slot: acc sums the products (t_0); more: acc is the injection
+  float acc_re[32], acc_im[32], p_re[32], p_im[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) acc_re[i] = acc_im[i] = p_re[i] = p_im[i] = 0.f;
+
+  for (int s = 0; s < stages; ++s) {
+    const int slot = s % kStages;
+    const int k = s / per_slot, jb = s - k * per_slot;
+    mbar_wait(full(slot), (s / kStages) & 1);
+    const unsigned char* st = smem + slot * G::kStage;
+    // the stage's sub-tiles that hold samples (one where C ends inside)
+    const bool both = (jb * kSub + 1) * kBK < a.C;
+    // A fragments of the k8 steps: register q holds row ra (rb for odd
+    // q), sample 8 (kk % 2) + tig (+4 for q >= 2) of sub-tile kk / 2
+    uint32_t a_hi[2 * kSub][4], a_lo[2 * kSub][4];
+#pragma unroll
+    for (int kk = 0; kk < 2 * kSub; ++kk)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const int row = (q & 1) ? rb : ra;
+        const int j = 8 * (kk % 2) + tig + ((q & 2) ? 4 : 0);
+        const float x =
+            kk < 2 || both
+                ? lds(st + kk / 2 * G::kSubBytes, swz64(row, j))
+                : 0.f;
+        tf32x3::split_tf32(__float_as_uint(x), a_hi[kk][q], a_lo[kk][q]);
+      }
+    hopper::wgmma_fence();
+    // the first product of a restart interval starts from zero
+    const int keep = jb % a.restart != 0;
+#pragma unroll
+    for (int kk = 0; kk < 2 * kSub; ++kk) {
+      if (kk >= 2 && !both) break;
+      const uint32_t at =
+          smem_u32(st + kk / 2 * G::kSubBytes + G::kF) + 32 * (kk % 2);
+      const uint64_t re_hi = desc_sw64(at), im_hi = desc_sw64(at + G::kTab);
+      const uint64_t re_lo = desc_sw64(at + 2 * G::kTab);
+      const uint64_t im_lo = desc_sw64(at + 3 * G::kTab);
+      const int first = kk == 0 ? keep : 1;
+      hopper::mma_m64n64k8(p_re, a_lo[kk], re_hi, first);
+      hopper::mma_m64n64k8(p_re, a_hi[kk], re_lo, 1);
+      hopper::mma_m64n64k8(p_re, a_hi[kk], re_hi, 1);
+      hopper::mma_m64n64k8(p_im, a_lo[kk], im_hi, first);
+      hopper::mma_m64n64k8(p_im, a_hi[kk], im_lo, 1);
+      hopper::mma_m64n64k8(p_im, a_hi[kk], im_hi, 1);
+    }
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(p_re);
+    hopper::fence_regs(p_im);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty(slot));   // this stage is free
+    if ((jb + 1) % a.restart == 0 || jb + 1 == per_slot) {
+      if (a.K == 1) {
+#pragma unroll
+        for (int i = 0; i < 32; ++i) {
+          acc_re[i] += p_re[i];
+          acc_im[i] += p_im[i];
+        }
+      } else {
+        slot_sum(a, obj, k, m_base, p_re, p_im, acc_re, acc_im);
+      }
+    }
+  }
+  if (a.K == 1) {   // inj = be_0 t_0
+    float t_re[32], t_im[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      t_re[i] = acc_re[i];
+      t_im[i] = acc_im[i];
+      acc_re[i] = acc_im[i] = 0.f;
+    }
+    slot_sum(a, obj, 0, m_base, t_re, t_im, acc_re, acc_im);
+  }
+
+  // accumulator 4 j + 2 h + e: row ra (rb for h = 1), mode m_base + 8 j + e
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    if (flat[h] < 0) continue;
+    const long long base = (long long)flat[h] * a.M;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int m = m_base + 8 * j;
+      if (m >= a.M) continue;
+      const long long at = base + m;
+      const int i = 4 * j + 2 * h;
+      if (a.pairs) {
+        *reinterpret_cast<float2*>(a.inj_re + at) =
+            make_float2(acc_re[i], acc_re[i + 1]);
+        *reinterpret_cast<float2*>(a.inj_im + at) =
+            make_float2(acc_im[i], acc_im[i + 1]);
+      } else {
+        a.inj_re[at] = acc_re[i];
+        a.inj_im[at] = acc_im[i];
+        if (m + 1 < a.M) {
+          a.inj_re[at + 1] = acc_re[i + 1];
+          a.inj_im[at + 1] = acc_im[i + 1];
+        }
+      }
+    }
+  }
+}
+
+// a tile's rows: (xb chunks, ob objects, tiles an object) at bm rows
+void tile_rows(int O, int X, bool shared, int bm, int& xb, int& ob,
+               int& tpo) {
+  xb = X < bm ? X : bm;
+  ob = X < bm && shared ? bm / X : 1;
+  if (ob > O) ob = O;
+  tpo = (X + xb - 1) / xb;
+}
+
+long long blocks(int O, int X, int M, bool shared, int bm) {
+  int xb, ob, tpo;
+  tile_rows(O, X, shared, bm, xb, ob, tpo);
+  return (long long)((O + ob - 1) / ob) * tpo * ((M + kBN - 1) / kBN);
+}
+
+int launch(const float* f, const float* be_re, const float* be_im,
+           const float* bt_re, const float* bt_im, const float* lo_re,
+           const float* lo_im, int og_count, float* inj_re, float* inj_im,
+           int O, int K, int X, int C, int M, int pairs, int restart_k8,
+           void* stream) {
+  using G = Cfg;
+  const bool shared = og_count == 1;
+  int xb, ob, tpo;
+  tile_rows(O, X, shared, G::kBM, xb, ob, tpo);
+  Maps maps;
+  const unsigned long long c4 = 4ull * C;
+  {
+    const unsigned long long dims[4] = {
+        (unsigned long long)C, (unsigned long long)X, (unsigned long long)K,
+        (unsigned long long)O};
+    const unsigned long long strides[3] = {c4, c4 * X, c4 * X * K};
+    const unsigned box[4] = {kBK, (unsigned)xb, 1, (unsigned)ob};
+    if (!hopper_host::encode_map(&maps.f, f, 4, dims, strides, box))
+      return (int)cudaErrorInvalidValue;
+  }
+  {
+    const unsigned long long dims[3] = {(unsigned long long)C,
+                                        (unsigned long long)M,
+                                        (unsigned long long)og_count};
+    const unsigned long long strides[2] = {c4, c4 * M};
+    const unsigned box[3] = {kBK, kBN, 1};
+    const float* planes[4] = {bt_re, bt_im, lo_re, lo_im};
+    CUtensorMap* maps_[4] = {&maps.bt_re, &maps.bt_im, &maps.lo_re,
+                             &maps.lo_im};
+    for (int i = 0; i < 4; ++i)
+      if (!hopper_host::encode_map(maps_[i], planes[i], 3, dims, strides,
+                                   box))
+        return (int)cudaErrorInvalidValue;
+  }
+  const int m_tiles = (M + kBN - 1) / kBN;
+  const int r_tiles = (O + ob - 1) / ob * tpo;
+  const Args args{be_re, be_im, inj_re, inj_im, O, K, X, C, M,
+                  shared ? 1 : 0, xb, ob, tpo, r_tiles, m_tiles,
+                  restart_k8 / (2 * kSub) > 0 ? restart_k8 / (2 * kSub) : 1,
+                  pairs};
+  auto kernel = span_inject_tc_wg;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, G::kSmem);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<(unsigned)((long long)r_tiles * m_tiles), G::kThreads, G::kSmem,
+           static_cast<cudaStream_t>(stream)>>>(maps, args);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace wg
+
+
 extern "C" {
 
-// Blocks of one launch (the wrapper checks them against the grid limit).
-long long span_inject_blocks(int O, int X, int M, long long tbl_stride) {
+// The variants (ops/span_inject.py::VARIANTS): 0 mma16, 1 mma64 (the
+// cp.async and mma.sync design at 16 or 64 rows a block), 2 wgmma (the
+// TMA and wgmma pipeline).
+
+// Blocks of one launch of ``variant`` (the wrapper checks them against
+// the grid limit).
+long long span_inject_blocks(int O, int X, int M, long long tbl_stride,
+                             int variant) {
+  if (variant == 2)
+    return wg::blocks(O, X, M, tbl_stride == 0, wg::Cfg::kBM);
   int rows, groups;
   row_groups(O, X, tbl_stride, rows, groups);
   const int m_tiles = (M + kBN - 1) / kBN;
-  const int bm = small_tiles(rows, groups, m_tiles) ? Tile<1, 1>::kBM
-                                                    : Tile<2, 2>::kBM;
+  const int bm = variant == 0 ? Tile<1, 1>::kBM : Tile<2, 2>::kBM;
   return (long long)groups * ((rows + bm - 1) / bm) * m_tiles;
 }
 
 // f [O, K, X*C]; be_re, be_im [O, K, M]; b_re, b_im [Og, C+1, M],
-// tbl_stride floats apart (0: one shared table); inj_re, inj_im [O, X, M].
-// float32, contiguous; O, X, C, M >= 1, K >= 0, O X below 2^31. vec4 != 0
-// takes 16-byte
-// copies (4 | C, 4 | M, f and the tables 16-byte aligned); pairs != 0
-// float2 stores (2 | M, the outputs 8-byte aligned). Returns the first
-// cudaError_t (0 = success).
+// tbl_stride floats apart (0: one shared table); bt_re, bt_im, lo_re,
+// lo_im [Og, M, C], the reversed K-major table and the lo planes of its
+// split (read by the wgmma variants only); inj_re, inj_im [O, X, M].
+// float32, contiguous; O, X, C, M >= 1, K >= 1, O X below 2^31. vec4 != 0
+// takes 16-byte copies in the mma variants (4 | C, 4 | M, f and the tables
+// 16-byte aligned); pairs != 0 float2 stores (2 | M, the outputs 8-byte
+// aligned). The wgmma variants need 4 | C, f and the planes 16-byte
+// aligned (the TMA), and restart_k8, the k8 steps between restarts of
+// their products (a multiple of 4). Returns the first cudaError_t (0 =
+// success).
 int span_inject(const float* f, const float* be_re, const float* be_im,
-                const float* b_re, const float* b_im, long long tbl_stride,
-                float* inj_re, float* inj_im, int O, int K, int X, int C,
-                int M, int vec4, int pairs, void* stream) {
+                const float* b_re, const float* b_im, const float* bt_re,
+                const float* bt_im, const float* lo_re, const float* lo_im,
+                long long tbl_stride, float* inj_re, float* inj_im, int O,
+                int K, int X, int C, int M, int vec4, int pairs, int variant,
+                int restart_k8, void* stream) {
+  if (variant == 2)
+    return wg::launch(f, be_re, be_im, bt_re, bt_im, lo_re, lo_im,
+                      tbl_stride == 0 ? 1 : O, inj_re, inj_im, O, K, X, C, M,
+                      pairs, restart_k8, stream);
   int rows, groups;
   row_groups(O, X, tbl_stride, rows, groups);
   const int m_tiles = (M + kBN - 1) / kBN;
-  const bool small = small_tiles(rows, groups, m_tiles);
+  const bool small = variant == 0;
   const int bm = small ? Tile<1, 1>::kBM : Tile<2, 2>::kBM;
   const Args a{f, be_re, be_im, b_re, b_im, tbl_stride, inj_re, inj_im,
                K, X, C, M, rows, (rows + bm - 1) / bm, m_tiles, pairs};
-  const long long blocks = span_inject_blocks(O, X, M, tbl_stride);
+  const long long blocks = span_inject_blocks(O, X, M, tbl_stride, variant);
   if (small)
     return vec4 ? launch<1, 1, 4>(a, blocks, stream)
                 : launch<1, 1, 1>(a, blocks, stream);

@@ -23,56 +23,74 @@
 // X = C = 512 and M = 1024 that is 275 GFLOP: 1.67 ms as three TF32
 // products at the data sheet's 495 TFLOP/s (4.1 ms in FP32 on the CUDA
 // cores), against ~1.6 GB of v, add and out (0.48 ms at 3.35 TB/s), so
-// operations bound it (bench/roofline.py::span_reduce). mma.sync reaches
-// ~322 TFLOP/s of TF32 on the card (bench/mma_rate.py): 2.6 ms is this
-// design's ceiling. g is ~0.1% of that work; with per-object tables it
-// reads the whole [O, C, M] table once, and bytes bound it.
+// operations bound it (bench/roofline.py::span_reduce). g is ~0.1% of
+// that work; with per-object tables it reads the whole [O, C, M] table
+// once, and bytes bound it.
 //
 // Precision: float32 in, float32 out, FP32-accurate. Every operand is
 // split into two TF32 numbers, x = hi + lo (the weights by rounding, the
-// table by truncation: two instructions a fragment register), and each
-// product is a_lo b_hi + a_hi b_lo + a_hi b_hi (tf32x3.cuh). The tensor
-// cores' float32 accumulation truncates, so each stage's products (four
-// k8 steps, eight for the 16-row shape) start from zero and are added to
-// float32 registers with rounding to nearest. Admitted by the measured
-// error against the FP32 twin (<= -110 dB, chip_smoke.py,
-// tests/test_torch_gpu.py); the TF32 pin of precision.py (cuBLAS, cuDNN)
-// stays.
+// table by truncation), and each product is a_lo b_hi + a_hi b_lo + a_hi
+// b_hi. The tensor cores' float32 accumulation truncates, so the products
+// restart from zero every ``restart`` k8 steps and are added to float32
+// registers with rounding to nearest. Admitted by the measured error
+// against the FP32 twin (<= -110 dB, chip_smoke.py,
+// tests/test_torch_gpu.py). No atomics, a fixed reduction order: two runs
+// are bitwise equal.
 //
-// Design: the output rows (o, l, r) that share a table are one GEMM: all
-// O L R rows for a shared bank, each object's L R rows for per-object
-// tables. One block of eight warps takes a tile of kBM of them and kBN =
-// 128 columns; the grid puts the column tiles that read one v tile next to
-// each other. The reduction walks the modes in stages of kBK modes (16;
-// 32 for the 16-row shape, whose blocks stream per-object tables: its
-// 128-byte row pieces read them faster than 64-byte ones),
-// double-buffered:
-//   - weight prologue: each thread loads one float4 of v_re, v_im and of
-//     t for the next stage into registers while the warps multiply the
-//     current one; after the products it forms w_pr and w_pi from them
-//     (in the twin's rounding order), splits each into hi and lo and
-//     stores the four planes to shared memory. No [O, L, R, M] weight
-//     tensor exists in device memory.
-//   - the table: the stage's kBN rows off+c, kBK modes each of B_re and
-//     B_im, arrive by cp.async (16-byte copies where 4 | M).
-//   - products: each warp owns a 32 x 32 output tile (16 x 16 for g's few
-//     slot rows a table, or where the 64-row blocks would not fill the
-//     card), A fragments by ldmatrix from the hi and lo planes (rows kBK
-//     + 4 words apart: conflict-free), B fragments from the table rows
-//     (as far apart: the 32 lanes hit 32 banks), split in registers by
-//     truncation; the re half of the stage against B_re, the im half
-//     against B_im.
-//   - epilogue: add (the convolution) is read and out written once, as
-//     float2 where C is even. No atomics, a fixed reduction order: two
-//     runs are bitwise equal.
+// Two designs, chosen by the wrapper from the shape alone
+// (ops/span_reduce.py::variant_for):
+//
+// wgmma (variant wgmma): the asynchronous pipeline. One block takes 128
+// output rows (o, l, r) of one table and 128 columns; a ring of three
+// stages of 16 modes each in shared memory (64 KB a stage), guarded by
+// full and empty mbarriers. A producer warp (its warpgroup
+// lowered to 40 registers by setmaxnreg) keeps TMA loads in flight: the
+// table rows off+c0 .. off+c0+127 of B_re, B_im and of their lo planes
+// (ops/span.py::span_planes: lo = b - (b with its low 13 bits cleared),
+// made once with the tables; the tensor cores read the top 19 bits, so
+// hi is the table itself), the v rows of the tile and the few t rows they
+// need, all 16 floats a row with the 64-byte swizzle. Two consumer
+// warpgroups (raised to 232 registers) form the weights w_pr, w_pi of
+// their 64 rows in registers from the v and t tiles, in the twin's
+// rounding order, split them by rounding, and feed them to wgmma
+// m64n128k8 TF32 as A from registers (mma.sync's m16n8k8 A layout, a
+// warp's 16 rows): no weight plane in shared memory, no ldmatrix, no
+// barrier between the prologue and the products. Per k8 step six
+// products, lo·hi, hi·lo, hi·hi of the re half against B_re, then of the
+// im half against B_im. The epilogue adds ``add`` (the convolution) and
+// writes out once.
 //
 // Measured (bench/span_ab.py, NVIDIA H100 80GB HBM3, 700 W; PERF.md): hom
-// 5.65 ms at 256 objects, X = C = 512, 29% of the bound, against 5.95 for
-// the first build, which split the table by rounding; one block an SM was
-// slower (7.01). Per-object g and short hom read their tables at 57-58%
-// of the byte bound in stages of 16 modes, with two stages in flight or
-// four, and at 83-84% in stages of 32 (g 0.558 -> 0.382 ms at 256 x 1024,
-// C = 512).
+// 2.93-3.25 ms at 256 objects, X = C = 512, against 5.60-5.79 for the mma
+// design. Without the weights' prologue it ran 2.66 ms, without the lo
+// planes' loads no faster: the consumers' prologue, not the bytes, is
+// what stands between this design and the tensor cores' rate; neither a
+// ping-pong of the two consumer warpgroups nor a second set of A
+// registers with one product group in flight recovered it (3.15-3.23,
+// 4.33 ms).
+//
+// fp32 (variant fp32): per-object g of at most 4 rows an object, which
+// reads the whole per-object table once for a few multiply-adds a float,
+// so bytes bound it. One block of eight warps takes an object's rows and
+// 32 of its columns: the weights of 256 modes at a time formed into shared
+// memory, each warp streaming four columns' table rows with 16-byte loads
+// and adding w_pr B_re + w_pi B_im in float32 on the CUDA cores (exact
+// float32 products; one warp reduction a column). Measured (bench/
+// span_ab.py; PERF.md): per-object g at 256 x 1024, C = 512, 0.344 ms
+// against 0.382 for mma16, 94% of its byte bound; with 16 or 17 rows the
+// weights' shared-memory reads made it 3-4x slower than mma16.
+//
+// mma (variants mma16, mma64; the design of the first version): one block
+// of eight warps takes 16 or 64 rows and 128 columns, double-buffered
+// through shared memory by cp.async, the weights formed and split into
+// planes in shared memory, the table split in registers by truncation,
+// mma.sync m16n8k8. It stays for the shapes whose few rows a table would
+// leave a 128-row wgmma tile mostly empty (per-object g of many slots,
+// short hom): those read their whole per-object table once and bytes
+// bound them, so the table's own split in registers reads half the bytes
+// of a lo plane; for calls too small to fill the card with 128-row tiles
+// (a shared table's g); and for modes the TMA cannot stride (M not a
+// multiple of 4).
 //
 // Plain C interface (loaded with ctypes); the launch goes on the stream
 // passed in, and the first error is returned as a cudaError_t.
@@ -80,6 +98,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
 #include "tf32x3.cuh"
 
 namespace {
@@ -368,16 +387,6 @@ __global__ void __launch_bounds__(kThreads, 2)
       }
 }
 
-constexpr int kFullWave = 2 * 132;   // two blocks on each SM of an H100
-
-// The block shape for ``groups`` tables of ``rows`` output rows each: 64
-// rows a block (warp tiles of 32 x 32) where that fills the card, else 16
-// (g's few slot rows, or a grid too small for the 64-row shape)
-bool small_tiles(long long rows, long long groups, int c_tiles) {
-  const long long big = (rows + Tile<2, 2>::kBM - 1) / Tile<2, 2>::kBM;
-  return rows <= 32 || big * groups * c_tiles < kFullWave;
-}
-
 // (rows of a group, groups): a shared table is one group of every row
 void row_groups(int O, int L, int R, long long tbl_stride, long long& rows,
                 long long& groups) {
@@ -399,40 +408,491 @@ int launch(const Args& a, long long blocks, void* stream) {
 
 }  // namespace
 
+// ------------------------------------------------------------------ wgmma
+
+namespace wg {
+
+using hopper::desc_sw64;
+using hopper::mbar_arrive;
+using hopper::mbar_wait;
+using hopper::smem_u32;
+using hopper::swz64;
+
+constexpr int kBN = 128;      // output columns a block
+constexpr int kBK = 16;       // modes a stage (64-byte rows)
+constexpr int kStages = 3;
+constexpr int kProducerRegs = 40, kConsumerRegs = 232;
+
+// two consumer warpgroups of 64 rows each, after one producer warpgroup
+struct Cfg {
+  static constexpr int kCons = 2;
+  static constexpr int kBM = 64 * kCons;
+  static constexpr int kThreads = 128 * (kCons + 1);
+  static constexpr int kTab = kBN * 64;   // bytes of one table plane's stage
+  static constexpr int kV = kBM * 64;     // of v's rows
+  static constexpr int kT = kBM * 64;     // of t's rows (at most one a row)
+  // a stage: b_re, b_im, lo_re, lo_im, v_re, v_im, t_re, t_im
+  static constexpr int kStage = 4 * kTab + 2 * kV + 2 * kT;
+  static constexpr int kSmem = kStages * kStage + 1024 + 16 * kStages;
+};
+
+struct Maps {
+  CUtensorMap b_re, b_im, lo_re, lo_im;   // [Og, C+1, M]
+  CUtensorMap v_re, v_im;                 // [O R, M]
+  CUtensorMap t_re, t_im;                 // [O, L, M]
+};
+
+struct Args {
+  const float* add;   // [O, L, R, C] or null
+  float* out;         // [O, L, R, C]
+  int O, L, R, C, M, off;
+  int shared;         // one table for every object
+  int group_rows;     // rows of one table's GEMM a listener row: O R or R
+  int r_tiles, c_tiles;
+  int t_rows;         // t rows a stage brings (the box)
+  int cplx;           // t_im given
+  int restart;        // stages between restarts of the products
+  int pairs;          // float2 accesses of add and out
+};
+
+__device__ __forceinline__ float lds(const unsigned char* tile, int off) {
+  return *reinterpret_cast<const float*>(tile + off);
+}
+
+__global__ void __launch_bounds__(Cfg::kThreads, 1)
+    span_reduce_tc_wg(const __grid_constant__ Maps maps, const Args a) {
+  using G = Cfg;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  const uint32_t bars = smem_u32(smem + kStages * G::kStage);
+  auto full = [&](int i) { return bars + 8 * i; };
+  auto empty = [&](int i) { return bars + 8 * (kStages + i); };
+
+  int bid = blockIdx.x;
+  const int ct = bid % a.c_tiles;
+  bid /= a.c_tiles;
+  const int rt = bid % a.r_tiles;
+  bid /= a.r_tiles;
+  const int groups = a.shared ? 1 : a.O;
+  const int grp = bid % groups, l = bid / groups;
+  const int c0 = ct * kBN, r0 = rt * G::kBM;   // r0: within the group
+  // the tile's first v row (o R + r), its object, and its table
+  const int vbase = (a.shared ? 0 : grp * a.R) + r0;
+  const int o_first = vbase / a.R;
+  const int og = a.shared ? 0 : grp;
+  const int stages = (a.M + kBK - 1) / kBK;
+
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < kStages; ++i) {
+      hopper::mbar_init(full(i), 1);
+      hopper::mbar_init(empty(i), 4 * G::kCons);   // one arrive a warp
+    }
+    hopper::mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (threadIdx.x < 128) {   // the producer warpgroup
+    hopper::regs_dec<kProducerRegs>();
+    if (threadIdx.x == 0) {
+      const uint32_t bytes =
+          4 * G::kTab + 2 * G::kV + (1 + a.cplx) * a.t_rows * 64;
+      for (int s = 0; s < stages; ++s) {
+        const int slot = s % kStages;
+        mbar_wait(empty(slot), ((s / kStages) & 1) ^ 1);
+        const uint32_t bar = full(slot);
+        hopper::mbar_expect(bar, bytes);
+        const uint32_t st = smem_u32(smem + slot * G::kStage);
+        const int m0 = s * kBK, row = a.off + c0;
+        hopper::tma_load_3d(st, &maps.b_re, bar, m0, row, og);
+        hopper::tma_load_3d(st + G::kTab, &maps.b_im, bar, m0, row, og);
+        hopper::tma_load_3d(st + 2 * G::kTab, &maps.lo_re, bar, m0, row, og);
+        hopper::tma_load_3d(st + 3 * G::kTab, &maps.lo_im, bar, m0, row, og);
+        const uint32_t sv = st + 4 * G::kTab;
+        hopper::tma_load_2d(sv, &maps.v_re, bar, m0, vbase);
+        hopper::tma_load_2d(sv + G::kV, &maps.v_im, bar, m0, vbase);
+        hopper::tma_load_3d(sv + 2 * G::kV, &maps.t_re, bar, m0, l, o_first);
+        if (a.cplx)
+          hopper::tma_load_3d(sv + 2 * G::kV + G::kT, &maps.t_im, bar, m0, l,
+                              o_first);
+      }
+    }
+    return;
+  }
+
+  // a consumer warpgroup: rows 64 cw .. 64 cw + 63 of the tile
+  hopper::regs_inc<kConsumerRegs>();
+  const int tid = threadIdx.x - 128;
+  const int cw = tid / 128, warp = (tid / 32) % 4, lane = tid % 32;
+  const int gid = lane >> 2, tig = lane & 3;
+  const int ra = cw * 64 + warp * 16 + gid, rb = ra + 8;
+  // their t rows in the stage's t tile
+  const int ta = min((vbase + ra) / a.R - o_first, a.t_rows - 1);
+  const int tb = min((vbase + rb) / a.R - o_first, a.t_rows - 1);
+  const bool cplx = a.cplx != 0;
+
+  float acc[64], part[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc[i] = part[i] = 0.f;
+
+  for (int s = 0; s < stages; ++s) {
+    const int slot = s % kStages;
+    mbar_wait(full(slot), (s / kStages) & 1);
+    const unsigned char* st = smem + slot * G::kStage;
+    const unsigned char* vr = st + 4 * G::kTab;
+    const unsigned char* vi = vr + G::kV;
+    const unsigned char* tr = vi + G::kV;
+    const unsigned char* ti = tr + G::kT;
+    // A fragments of both k8 steps: register q holds row ra (rb for odd
+    // q), mode 8 kk + tig (+4 for q >= 2)
+    uint32_t pr_hi[2][4], pr_lo[2][4], pi_hi[2][4], pi_lo[2][4];
+#pragma unroll
+    for (int kk = 0; kk < 2; ++kk)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const int row = (q & 1) ? rb : ra, trow = (q & 1) ? tb : ta;
+        const int k = 8 * kk + tig + ((q & 2) ? 4 : 0);
+        const float v_re = lds(vr, swz64(row, k));
+        const float v_im = lds(vi, swz64(row, k));
+        const float t_re = lds(tr, swz64(trow, k));
+        const float t_im = cplx ? lds(ti, swz64(trow, k)) : 0.f;
+        float pr, pi;
+        weights(t_re, t_im, v_re, v_im, cplx, pr, pi);
+        tf32x3::split_tf32(__float_as_uint(pr), pr_hi[kk][q], pr_lo[kk][q]);
+        tf32x3::split_tf32(__float_as_uint(pi), pi_hi[kk][q], pi_lo[kk][q]);
+      }
+    hopper::wgmma_fence();
+    // the first product of a restart interval starts from zero
+    const int keep = s % a.restart != 0;
+    const uint32_t b0 = smem_u32(st);
+#pragma unroll
+    for (int kk = 0; kk < 2; ++kk) {
+      const uint32_t at = b0 + 32 * kk;
+      const uint64_t re_hi = desc_sw64(at), im_hi = desc_sw64(at + G::kTab);
+      const uint64_t re_lo = desc_sw64(at + 2 * G::kTab);
+      const uint64_t im_lo = desc_sw64(at + 3 * G::kTab);
+      hopper::mma_m64n128k8(part, pr_lo[kk], re_hi, kk == 0 ? keep : 1);
+      hopper::mma_m64n128k8(part, pr_hi[kk], re_lo, 1);
+      hopper::mma_m64n128k8(part, pr_hi[kk], re_hi, 1);
+      hopper::mma_m64n128k8(part, pi_lo[kk], im_hi, 1);
+      hopper::mma_m64n128k8(part, pi_hi[kk], im_lo, 1);
+      hopper::mma_m64n128k8(part, pi_hi[kk], im_hi, 1);
+    }
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(part);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty(slot));   // this stage is free
+    if ((s + 1) % a.restart == 0 || s + 1 == stages) {
+#pragma unroll
+      for (int i = 0; i < 64; ++i) acc[i] += part[i];
+    }
+  }
+
+  // accumulator 4 j + 2 h + e: row ra (rb for h = 1), column 8 j + 2 tig
+  // + e of the tile
+  const int valid = min(G::kBM, a.group_rows - r0);
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int i = h ? rb : ra;
+    if (i >= valid) continue;
+    const int fv = vbase + i, o = fv / a.R, r = fv - o * a.R;
+    const long long base =
+        (((long long)o * a.L + l) * a.R + r) * (long long)a.C;
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      const int c = c0 + 8 * j + 2 * tig;
+      if (c >= a.C) continue;
+      const long long at = base + c;
+      float2 val = make_float2(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+      if (a.pairs) {
+        if (a.add) {
+          const float2 add = *reinterpret_cast<const float2*>(a.add + at);
+          val.x += add.x;
+          val.y += add.y;
+        }
+        *reinterpret_cast<float2*>(a.out + at) = val;
+      } else {
+        a.out[at] = a.add ? val.x + a.add[at] : val.x;
+        if (c + 1 < a.C) a.out[at + 1] = a.add ? val.y + a.add[at + 1] : val.y;
+      }
+    }
+  }
+}
+
+// blocks of one launch at kBM rows a block
+long long blocks(int O, int L, int R, int C, bool shared, int bm) {
+  const long long rows = (long long)R * (shared ? O : 1);
+  return (long long)L * (shared ? 1 : O) * ((rows + bm - 1) / bm) *
+         ((C + kBN - 1) / kBN);
+}
+
+int launch(const float* t_re, const float* t_im, const float* v_re,
+           const float* v_im, const float* b_re, const float* b_im,
+           const float* lo_re, const float* lo_im, int og_count,
+           const float* add, float* out, int O, int L, int R, int C, int M,
+           int off, int pairs, int restart_k8, void* stream) {
+  using G = Cfg;
+  const bool shared = og_count == 1;
+  const int group_rows = R * (shared ? O : 1);
+  // t rows a tile of kBM v rows spans: its objects, at most one a row
+  const int t_rows = shared ? min(G::kBM, (G::kBM - 1) / R + 2) : 1;
+  Maps maps;
+  const unsigned long long f4 = 4, m4 = f4 * M;
+  {
+    const unsigned long long dims[3] = {(unsigned long long)M,
+                                        (unsigned long long)C + 1,
+                                        (unsigned long long)og_count};
+    const unsigned long long strides[2] = {m4, m4 * (C + 1)};
+    const unsigned box[3] = {kBK, kBN, 1};
+    const float* planes[4] = {b_re, b_im, lo_re, lo_im};
+    CUtensorMap* maps_[4] = {&maps.b_re, &maps.b_im, &maps.lo_re,
+                             &maps.lo_im};
+    for (int i = 0; i < 4; ++i)
+      if (!hopper_host::encode_map(maps_[i], planes[i], 3, dims, strides,
+                                   box))
+        return (int)cudaErrorInvalidValue;
+  }
+  {
+    const unsigned long long dims[2] = {(unsigned long long)M,
+                                        (unsigned long long)O * R};
+    const unsigned long long strides[1] = {m4};
+    const unsigned box[2] = {kBK, G::kBM};
+    if (!hopper_host::encode_map(&maps.v_re, v_re, 2, dims, strides, box) ||
+        !hopper_host::encode_map(&maps.v_im, v_im, 2, dims, strides, box))
+      return (int)cudaErrorInvalidValue;
+  }
+  {
+    const unsigned long long dims[3] = {(unsigned long long)M,
+                                        (unsigned long long)L,
+                                        (unsigned long long)O};
+    const unsigned long long strides[2] = {m4, m4 * L};
+    const unsigned box[3] = {kBK, 1, (unsigned)t_rows};
+    if (!hopper_host::encode_map(&maps.t_re, t_re, 3, dims, strides, box))
+      return (int)cudaErrorInvalidValue;
+    // real rows: t_im unread, its map a copy
+    if (t_im == nullptr)
+      maps.t_im = maps.t_re;
+    else if (!hopper_host::encode_map(&maps.t_im, t_im, 3, dims, strides,
+                                      box))
+      return (int)cudaErrorInvalidValue;
+  }
+  const Args args{add, out, O, L, R, C, M, off, shared ? 1 : 0, group_rows,
+                  (group_rows + G::kBM - 1) / G::kBM, (C + kBN - 1) / kBN,
+                  t_rows, t_im != nullptr ? 1 : 0,
+                  restart_k8 / 4 > 0 ? restart_k8 / 4 : 1, pairs};
+  auto kernel = span_reduce_tc_wg;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, G::kSmem);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<(unsigned)blocks(O, L, R, C, shared, G::kBM), G::kThreads,
+           G::kSmem, static_cast<cudaStream_t>(stream)>>>(maps, args);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace wg
+
+// ------------------------------------------------------------------- fp32
+
+namespace fp32 {
+
+constexpr int kWarps = 8;
+constexpr int kThreads = 32 * kWarps;
+constexpr int kMC = 256;   // modes a chunk of weights in shared memory
+
+struct Args {
+  const float *t_re, *t_im;   // [O, L, M]; t_im null: real rows
+  const float *v_re, *v_im;   // [O, R, M]
+  const float *b_re, *b_im;   // [Og, C+1, M]
+  const float* add;           // [O, L, R, C] or null
+  float* out;                 // [O, L, R, C]
+  int shared, L, R, C, M, off, c_tiles;
+};
+
+constexpr int kCW = 4;     // columns a warp
+
+// An object's L R rows (at most kRows) against kWarps kCW columns of its
+// table: the weights of a chunk of kMC modes formed once into shared
+// memory, each warp streaming its columns' table rows (16-byte loads, 4 |
+// M) and adding w_pr B_re + w_pi B_im of every row into registers, in
+// float32 on the CUDA cores; one warp reduction a column at the end.
+template <int kRows>
+__global__ void __launch_bounds__(kThreads)
+    span_reduce_fp32(const Args a) {
+  extern __shared__ __align__(16) float w[];   // [2][kRows][kMC]
+  const int ct = blockIdx.x % a.c_tiles, o = blockIdx.x / a.c_tiles;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int rows = a.L * a.R;
+  const bool cplx = a.t_im != nullptr;
+  const long long tbl = a.shared ? 0 : (long long)o * (a.C + 1) * a.M;
+  const float* bre[kCW];
+  const float* bim[kCW];
+  int col[kCW];
+#pragma unroll
+  for (int j = 0; j < kCW; ++j) {
+    col[j] = (ct * kWarps + warp) * kCW + j;
+    const long long row =
+        tbl + (long long)(a.off + min(col[j], a.C - 1)) * a.M;
+    bre[j] = a.b_re + row;
+    bim[j] = a.b_im + row;
+  }
+  float acc[kRows][kCW];
+#pragma unroll
+  for (int r = 0; r < kRows; ++r)
+#pragma unroll
+    for (int j = 0; j < kCW; ++j) acc[r][j] = 0.f;
+
+  for (int m0 = 0; m0 < a.M; m0 += kMC) {
+    for (int i = threadIdx.x; i < kRows * kMC; i += kThreads) {
+      const int r = i / kMC, m = m0 + i % kMC;
+      float pr = 0.f, pi = 0.f;
+      if (r < rows && m < a.M) {
+        const int l = r / a.R, rr = r - l * a.R;
+        const long long tv = ((long long)o * a.L + l) * a.M + m;
+        const long long vv = ((long long)o * a.R + rr) * a.M + m;
+        weights(__ldg(a.t_re + tv), cplx ? __ldg(a.t_im + tv) : 0.f,
+                    __ldg(a.v_re + vv), __ldg(a.v_im + vv), cplx, pr, pi);
+      }
+      w[i] = pr;
+      w[kRows * kMC + i] = pi;
+    }
+    __syncthreads();
+#pragma unroll 2
+    for (int mi = lane * 4; mi < kMC; mi += 128) {
+      if (m0 + mi >= a.M) break;
+      float4 br[kCW], bi[kCW];
+#pragma unroll
+      for (int j = 0; j < kCW; ++j) {
+        br[j] = __ldg(reinterpret_cast<const float4*>(bre[j] + m0 + mi));
+        bi[j] = __ldg(reinterpret_cast<const float4*>(bim[j] + m0 + mi));
+      }
+#pragma unroll
+      for (int r = 0; r < kRows; ++r) {
+        const float4 wr = *reinterpret_cast<const float4*>(w + r * kMC + mi);
+        const float4 wi =
+            *reinterpret_cast<const float4*>(w + (kRows + r) * kMC + mi);
+#pragma unroll
+        for (int j = 0; j < kCW; ++j) {
+          float s = acc[r][j];
+          s = fmaf(wr.x, br[j].x, s);
+          s = fmaf(wr.y, br[j].y, s);
+          s = fmaf(wr.z, br[j].z, s);
+          s = fmaf(wr.w, br[j].w, s);
+          s = fmaf(wi.x, bi[j].x, s);
+          s = fmaf(wi.y, bi[j].y, s);
+          s = fmaf(wi.z, bi[j].z, s);
+          s = fmaf(wi.w, bi[j].w, s);
+          acc[r][j] = s;
+        }
+      }
+    }
+    __syncthreads();   // the chunk's weights are free for the next
+  }
+
+#pragma unroll
+  for (int r = 0; r < kRows; ++r)
+#pragma unroll
+    for (int j = 0; j < kCW; ++j) {
+      float s = acc[r][j];
+#pragma unroll
+      for (int d = 16; d > 0; d >>= 1) s += __shfl_xor_sync(0xffffffffu, s, d);
+      if (lane == 0 && r < rows && col[j] < a.C) {
+        const int l = r / a.R, rr = r - l * a.R;
+        const long long at =
+            (((long long)o * a.L + l) * a.R + rr) * a.C + col[j];
+        a.out[at] = a.add ? s + a.add[at] : s;
+      }
+    }
+}
+
+long long blocks(int O, int C) {
+  return (long long)O * ((C + kWarps * kCW - 1) / (kWarps * kCW));
+}
+
+template <int kRows>
+int launch_rows(const Args& a, int O, void* stream) {
+  auto kernel = span_reduce_fp32<kRows>;
+  const int smem = 2 * kRows * kMC * (int)sizeof(float);
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<(unsigned)((long long)O * a.c_tiles), kThreads, smem,
+           static_cast<cudaStream_t>(stream)>>>(a);
+  return (int)cudaGetLastError();
+}
+
+// L R <= 4 rows an object, 4 | M, the tables 16-byte aligned
+int launch(const float* t_re, const float* t_im, const float* v_re,
+           const float* v_im, const float* b_re, const float* b_im,
+           bool shared, const float* add, float* out, int O, int L, int R,
+           int C, int M, int off, void* stream) {
+  const int rows = L * R;
+  if (rows > 4) return (int)cudaErrorInvalidValue;
+  const Args a{t_re, t_im, v_re, v_im, b_re, b_im, add, out,
+               shared ? 1 : 0, L, R, C, M, off,
+               (C + kWarps * kCW - 1) / (kWarps * kCW)};
+  return rows == 1 ? launch_rows<1>(a, O, stream)
+                   : launch_rows<4>(a, O, stream);
+}
+
+}  // namespace fp32
+
+
 extern "C" {
 
-// Blocks of one launch (the wrapper checks them against the grid limit).
+// The variants (ops/span_reduce.py::VARIANTS): 0 mma16, 1 mma64 (the
+// cp.async and mma.sync design at 16 or 64 rows a block), 2 wgmma (the
+// TMA and wgmma pipeline), 3 fp32 (the streaming design on the
+// CUDA cores, L R <= 4 rows an object).
+
+// Blocks of one launch of ``variant`` (the wrapper checks them against
+// the grid limit).
 long long span_reduce_blocks(int O, int L, int R, int C,
-                             long long tbl_stride) {
+                             long long tbl_stride, int variant) {
+  if (variant == 2)
+    return wg::blocks(O, L, R, C, tbl_stride == 0, wg::Cfg::kBM);
+  if (variant == 3) return fp32::blocks(O, C);
   long long rows, groups;
   row_groups(O, L, R, tbl_stride, rows, groups);
   const int c_tiles = (C + kBN - 1) / kBN;
-  const int bm = small_tiles(rows, groups, c_tiles) ? Tile<1, 1>::kBM
-                                                    : Tile<2, 2>::kBM;
+  const int bm = variant == 0 ? Tile<1, 1>::kBM : Tile<2, 2>::kBM;
   return groups * ((rows + bm - 1) / bm) * c_tiles;
 }
 
 // t_re, t_im [O, L, M] (t_im null: real rows); v_re, v_im [O, R, M];
 // b_re, b_im [Og, rows, M] with rows >= off + C, tbl_stride floats apart
-// (0: one shared table); add [O, L, R, C] or null; out [O, L, R, C]; O L R
-// below 2^31.
-// float32, contiguous; O, L, R, C, M >= 1. vec4 != 0 takes 16-byte loads
-// (4 | M, every row 16-byte aligned); pairs != 0 float2 accesses of add
-// and out (2 | C, both 8-byte aligned). Returns the first cudaError_t.
+// (0: one shared table); lo_re, lo_im their lo planes (read by the wgmma
+// variants only, which need rows = C + 1); add [O, L, R, C] or null; out
+// [O, L, R, C]; O L R below 2^31. float32, contiguous; O, L, R, C, M >= 1.
+// vec4 != 0 takes 16-byte loads in the mma variants (4 | M, every row
+// 16-byte aligned); pairs != 0 float2 accesses of add and out (2 | C, both
+// 8-byte aligned). The wgmma variants need 4 | M and every tensor but add
+// and out 16-byte aligned (the TMA), and restart_k8, the k8 steps between
+// restarts of their products (a multiple of 4). Returns the first
+// cudaError_t.
 int span_reduce(const float* t_re, const float* t_im, const float* v_re,
                 const float* v_im, const float* b_re, const float* b_im,
-                long long tbl_stride, const float* add, float* out, int O,
-                int L, int R, int C, int M, int off, int vec4, int pairs,
-                void* stream) {
+                const float* lo_re, const float* lo_im, long long tbl_stride,
+                const float* add, float* out, int O, int L, int R, int C,
+                int M, int off, int vec4, int pairs, int variant,
+                int restart_k8, void* stream) {
+  if (variant == 2)
+    return wg::launch(t_re, t_im, v_re, v_im, b_re, b_im, lo_re, lo_im,
+                      tbl_stride == 0 ? 1 : O, add, out, O, L, R, C, M, off,
+                      pairs, restart_k8, stream);
+  if (variant == 3)
+    return fp32::launch(t_re, t_im, v_re, v_im, b_re, b_im, tbl_stride == 0,
+                       add, out, O, L, R, C, M, off, stream);
   long long rows, groups;
   row_groups(O, L, R, tbl_stride, rows, groups);
   const int c_tiles = (C + kBN - 1) / kBN;
-  const bool small = small_tiles(rows, groups, c_tiles);
+  const bool small = variant == 0;
   const int bm = small ? Tile<1, 1>::kBM : Tile<2, 2>::kBM;
   const Args a{t_re, t_im, v_re, v_im, b_re, b_im, tbl_stride, add, out,
                L, R, C, M, off, (int)rows, (int)((rows + bm - 1) / bm),
                c_tiles, pairs};
-  const long long blocks = span_reduce_blocks(O, L, R, C, tbl_stride);
+  const long long blocks = span_reduce_blocks(O, L, R, C, tbl_stride,
+                                              variant);
   if (small)
     return vec4 ? launch<1, 1, 4>(a, blocks, stream)
                 : launch<1, 1, 1>(a, blocks, stream);

@@ -133,14 +133,15 @@ def load() -> ctypes.CDLL:
             lib.toeplitz_conv_smem_bytes.restype = ll
             lib.toeplitz_conv_blocks.argtypes = [i] * 4
             lib.toeplitz_conv_blocks.restype = ll
-            lib.span_inject.argtypes = [p] * 5 + [ll] + [p] * 2 + [i] * 7 + [p]
+            lib.span_inject.argtypes = ([p] * 9 + [ll] + [p] * 2 + [i] * 9
+                                        + [p])
             lib.span_inject.restype = i
-            lib.span_inject_blocks.argtypes = [i] * 3 + [ll]
+            lib.span_inject_blocks.argtypes = [i] * 3 + [ll, i]
             lib.span_inject_blocks.restype = ll
-            lib.span_reduce.argtypes = ([p] * 6 + [ll] + [p] * 2 + [i] * 8
+            lib.span_reduce.argtypes = ([p] * 8 + [ll] + [p] * 2 + [i] * 10
                                         + [p])
             lib.span_reduce.restype = i
-            lib.span_reduce_blocks.argtypes = [i] * 4 + [ll]
+            lib.span_reduce_blocks.argtypes = [i] * 4 + [ll, i]
             lib.span_reduce_blocks.restype = ll
             lib.ar_noise.argtypes = [p, ll, ll, p, i, i, i, i, p]
             lib.ar_noise.restype = i

@@ -100,17 +100,70 @@ class FullSpanTables:
         return True
 
 
+# builds of span planes (span_planes calls), read by chip_smoke.py's gate
+PLANE_BUILDS = 0
+
+_HI_MASK = -8192    # 0xffffe000 as an int32: a float32's low 13 bits cleared
+
+
+@dataclasses.dataclass(frozen=True)
+class SpanPlanes:
+    """The baby table laid out once for the contraction kernels' wgmma
+    variants (csrc/span_reduce.cu, csrc/span_inject.cu), whose tensor cores
+    read the top 19 bits of each float32: the table split by truncation is
+    hi = b with its low 13 bits cleared (what the tensor cores read of b
+    itself) and lo = b - hi (exact), so only lo is stored.
+
+    ``lo_re/lo_im``: [Og, C+1, M], span_reduce's lo planes. ``bt_re/
+    bt_im``: [Og, M, C], bt[og, m, j] = lam^(C-1-j)[m], span_inject's
+    K-major reversed copy (wgmma takes TF32 operands K-major only), and
+    ``bt_lo_re/bt_lo_im`` its lo planes."""
+    lo_re: torch.Tensor
+    lo_im: torch.Tensor
+    bt_re: torch.Tensor
+    bt_im: torch.Tensor
+    bt_lo_re: torch.Tensor
+    bt_lo_im: torch.Tensor
+
+
+def _lo_plane(x: torch.Tensor) -> torch.Tensor:
+    """x - (x with its low 13 bits cleared): exact in float32."""
+    return x - (x.view(torch.int32) & _HI_MASK).view(torch.float32)
+
+
+def span_planes(b_re: torch.Tensor, b_im: torch.Tensor) -> SpanPlanes:
+    """The planes of a float32 baby table [Og, C+1, M], on its device: a
+    layout step of plain tensor ops (an int32 view, a mask, flip,
+    transpose), the same on the CPU and the card, bitwise."""
+    global PLANE_BUILDS
+    if b_re.dtype != torch.float32 or b_im.dtype != torch.float32:
+        raise ValueError("span planes split float32 tables; got "
+                         f"{b_re.dtype}, {b_im.dtype}")
+    c = b_re.shape[1] - 1
+    bt_re, bt_im = (b[:, :c].flip(1).transpose(1, 2).contiguous()
+                    for b in (b_re, b_im))
+    PLANE_BUILDS += 1
+    return SpanPlanes(lo_re=_lo_plane(b_re.contiguous()),
+                      lo_im=_lo_plane(b_im.contiguous()),
+                      bt_re=bt_re, bt_im=bt_im, bt_lo_re=_lo_plane(bt_re),
+                      bt_lo_im=_lo_plane(bt_im))
+
+
 @dataclasses.dataclass(frozen=True)
 class ChunkSpanTables:
     """Baby-table span form: ``b_re/b_im`` hold lam^r for r in [0, C] as
     ``[Og, C+1, M]`` (Og == 1 for shared banks); the span is ``n_chunks``
     chunks of C samples. ``s_re/s_im`` ([Og, G+1, M], or None) hold the
-    superchunk powers lam^(dC), d in [0, G], of the two-level scan."""
+    superchunk powers lam^(dC), d in [0, G], of the two-level scan.
+    ``planes`` (SpanPlanes or None) is the table laid out for the
+    contraction kernels, made once with the session's tables
+    (with_planes); without it a kernel call makes its own."""
     b_re: torch.Tensor
     b_im: torch.Tensor
     n_chunks: int
     s_re: torch.Tensor | None = None
     s_im: torch.Tensor | None = None
+    planes: SpanPlanes | None = None
 
     @property
     def chunk(self) -> int:
@@ -128,6 +181,15 @@ class ChunkSpanTables:
     def superchunk(self) -> int:
         """Chunks per superchunk group (1 = plain single-level scan)."""
         return 1 if self.s_re is None else self.s_re.shape[1] - 1
+
+
+def with_planes(tables: ChunkSpanTables) -> ChunkSpanTables:
+    """``tables`` carrying their SpanPlanes (built here unless they already
+    do; float32 tables only, the kernels' type)."""
+    if tables.planes is not None or tables.b_re.dtype != torch.float32:
+        return tables
+    return dataclasses.replace(tables, planes=span_planes(tables.b_re,
+                                                          tables.b_im))
 
 
 def choose_radix(span: int, target: int | None = None) -> int:
@@ -373,7 +435,7 @@ def _chunk_hom(zs_re, zs_im, t_re, t_im, tables: ChunkSpanTables,
     within-chunk convolution) where given: [O, L, X, C]. One span_reduce
     against table rows 1 .. C."""
     return span_reduce(t_re, t_im, zs_re, zs_im, tables.b_re, tables.b_im,
-                       1, conv)
+                       1, conv, tables.planes)
 
 
 def _span_sound(parts: torch.Tensor, multi: bool) -> torch.Tensor:
@@ -399,13 +461,15 @@ def _integrate_span_chunked(z_re, z_im, bank, tables: ChunkSpanTables,
     # short per-slot kernels g_k[d] = Im(lam^d t b e_k) . 1, d in [0, C);
     # complex transfers reshuffle the pre-products (_complex_weights,
     # formed inside span_reduce)
-    g = span_reduce(t_re, t_im, be_re, be_im, b_re, b_im, 0)  # [O, L, K, C]
+    g = span_reduce(t_re, t_im, be_re, be_im, b_re, b_im, 0, None,
+                    tables.planes)                    # [O, L, K, C]
 
     # within-chunk causal conv, summed over slots
     conv = toeplitz_conv(g, f_k.reshape(o, k, x, c))   # [O, L, X, C]
 
     # per-chunk injections: sum_k b e_k sum_j lam^(C-1-j) f_chunk[j]
-    inj_re, inj_im = span_inject(f_k, be_re, be_im, b_re, b_im)
+    inj_re, inj_im = span_inject(f_k, be_re, be_im, b_re, b_im,
+                                 tables.planes)
 
     zr_f, zi_f, zs_re, zs_im = _chunk_start_states(z_re, z_im, inj_re,
                                                    inj_im, tables)

@@ -15,16 +15,50 @@ runs the product on the tensor cores with the 3xTF32 split (held to <=
 flipping f, and forms the complex sum over slots in registers, so no
 [O, K, X, M] tensor exists; on CPU tensors it runs
 ``span_inject_reference``, the stage code it replaces, which is also what
-the kernel is held against on the card.
+the kernel is held against on the card. The kernel source holds two
+designs; ``variant_for`` picks one from the shape alone: the TMA and wgmma
+pipeline (reading the table's reversed K-major planes,
+ops/span.py::span_planes) where a table's chunks fill 128-row tiles that
+fill the card, the cp.async and mma.sync one (the table read in reverse
+and split in registers) where they do not, which is where the per-object
+table's bytes bound the call.
 """
 from __future__ import annotations
 
 import torch
 
 MAX_BLOCKS = 2**31 - 1    # one grid dimension
+SMS = 132                 # streaming multiprocessors of an H100
+# the kernel's variants, by their number in its C interface
+VARIANTS = ("mma16", "mma64", "wgmma")
+# k8 steps between restarts of the wgmma variant's products (the tensor
+# cores' float32 accumulation truncates): at C = 512, 16 measured -119.7
+# dB against the twin, 32 -115.6 and 64 (no restart) -111.3, at the -110
+# dB bar (PERF.md); 16 keeps a margin for other data
+RESTART_K8 = 16
 
 # launches of the card's kernel (one per call)
 LAUNCHES = 0
+
+
+def variant_for(o: int, k: int, x: int, c: int, m: int, og: int) -> str:
+    """The kernel variant for a call's shape, by the shape alone: wgmma
+    where one table's injection rows (all O X of a shared table, X of a
+    per-object one) fill 128-row tiles, those tiles fill the card and the
+    TMA can stride the chunk rows (4 | C); else mma (per-object tables
+    with few chunks, bound by reading them, and calls too small to fill
+    the card), 64 rows a block where that fills two blocks on each SM,
+    else 16."""
+    shared = og == 1
+    rows = x * (o if shared else 1)
+    groups = 1 if shared else o
+    m_tiles = -(-m // 64)
+    if c % 4 == 0 and rows >= 128 and (
+            groups * -(-rows // 128) * m_tiles >= SMS):
+        return "wgmma"
+    big = -(-rows // 64)
+    return ("mma16" if rows <= 16 or big * groups * m_tiles < 2 * SMS
+            else "mma64")
 
 
 def _contract_xm(f: torch.Tensor, tbl: torch.Tensor) -> torch.Tensor:
@@ -52,7 +86,7 @@ def span_inject_reference(f_k, be_re, be_im, b_re, b_im):
     return inj_re, inj_im
 
 
-def _launch(f_k, be_re, be_im, b_re, b_im):
+def _launch(f_k, be_re, be_im, b_re, b_im, planes, variant):
     from . import _build
     lib = _build.load()
     o, k, n = f_k.shape
@@ -66,12 +100,30 @@ def _launch(f_k, be_re, be_im, b_re, b_im):
         raise ValueError(f"span_inject needs O, X, C, M >= 1; got f "
                          f"{tuple(f_k.shape)}, table {tuple(b_re.shape)}")
     stride = 0 if b_re.shape[0] == 1 else (c + 1) * m
+    index = VARIANTS.index(variant)
     if o * x > MAX_BLOCKS or lib.span_inject_blocks(
-            o, x, m, stride) > MAX_BLOCKS:
+            o, x, m, stride, index) > MAX_BLOCKS:
         raise ValueError(f"{o} objects x {x} chunks x {m} modes exceed "
                          "the kernel's grid")
     f_k, be_re, be_im, b_re, b_im = (t.contiguous() for t in (
         f_k, be_re, be_im, b_re, b_im))
+    bt = [None] * 4
+    if variant == "wgmma":
+        if planes is None:
+            from .span import span_planes
+            planes = span_planes(b_re, b_im)
+        bt = [planes.bt_re, planes.bt_im, planes.bt_lo_re, planes.bt_lo_im]
+        want = (b_re.shape[0], m, c)
+        for p in bt:
+            if (p.shape != want or p.device != f_k.device
+                    or p.dtype != torch.float32 or not p.is_contiguous()):
+                raise ValueError(f"span_inject: plane {tuple(p.shape)} on "
+                                 f"{p.device} is not the table's reversed "
+                                 f"layout {want}")
+        # the TMA reads from 16-byte aligned bases
+        if any(t.data_ptr() % 16 for t in [f_k] + bt):
+            raise ValueError(f"span_inject ({variant}) needs f and the "
+                             "planes 16-byte aligned (the TMA's bases)")
     inj_re = torch.empty((o, x, m), dtype=torch.float32, device=f_k.device)
     inj_im = torch.empty_like(inj_re)
     # 16-byte copies need rows of whole float4s on 16-byte boundaries
@@ -81,10 +133,11 @@ def _launch(f_k, be_re, be_im, b_re, b_im):
     with _build.device_guard(f_k):
         err = lib.span_inject(
             f_k.data_ptr(), be_re.data_ptr(), be_im.data_ptr(),
-            b_re.data_ptr(), b_im.data_ptr(), stride, inj_re.data_ptr(),
-            inj_im.data_ptr(), o, k, x, c, m, vec4, pairs,
-            _build.launch_stream(f_k))
-    _build.check(err, "span_inject")
+            b_re.data_ptr(), b_im.data_ptr(),
+            *(None if p is None else p.data_ptr() for p in bt), stride,
+            inj_re.data_ptr(), inj_im.data_ptr(), o, k, x, c, m, vec4, pairs,
+            index, RESTART_K8, _build.launch_stream(f_k))
+    _build.check(err, f"span_inject ({variant})")
     return inj_re, inj_im
 
 
@@ -92,10 +145,13 @@ def span_inject(f_k: torch.Tensor,     # [O, K, N] per-slot profiles
                 be_re: torch.Tensor,   # [O, K, M] b e_k
                 be_im: torch.Tensor,
                 b_re: torch.Tensor,    # [Og, C+1, M] baby table lam^r
-                b_im: torch.Tensor):
+                b_im: torch.Tensor,
+                planes=None):          # ops/span.py::SpanPlanes
     """Every chunk's state injection, summed over slots -> (inj_re,
-    inj_im) [O, N/C, M]. CUDA tensors launch the kernel (a failed build or
-    launch raises); CPU tensors run the plain twin."""
+    inj_im) [O, N/C, M]. CUDA tensors launch the kernel's variant for the
+    shape (variant_for; a failed build or launch raises), its wgmma
+    variant reading ``planes``, made for this call when not given; CPU
+    tensors run the plain twin."""
     global LAUNCHES
     dtypes = [t.dtype for t in (f_k, be_re, be_im, b_re, b_im)]
     if not f_k.dtype.is_floating_point or len(set(dtypes)) > 1:
@@ -112,7 +168,8 @@ def span_inject(f_k: torch.Tensor,     # [O, K, N] per-slot profiles
             f"{tuple(be_re.shape)} [O, K, M], table {tuple(b_re.shape)} "
             "[Og, C+1, M]")
     if f_k.is_cuda:
-        out = _launch(f_k, be_re, be_im, b_re, b_im)
+        out = _launch(f_k, be_re, be_im, b_re, b_im, planes,
+                      variant_for(o, k, n // c, c, m, og))
         LAUNCHES += 1
         return out
     if f_k.device.type == "cpu":

@@ -17,7 +17,12 @@ forms the weights in registers, runs the product on the tensor cores with
 the 3xTF32 split (held to <= -110 dB against the twin) and adds ``add`` as
 it writes ``out``; on CPU tensors it runs ``span_reduce_reference``, the
 stage code it replaces, which is also what the kernel is held against on
-the card.
+the card. The kernel source holds three designs; ``variant_for`` picks
+one from the shape alone: the TMA and wgmma pipeline (reading the table's
+lo planes, ops/span.py::span_planes) where a table's rows fill 128-row
+tiles that fill the card, a float32 stream on the CUDA cores for
+per-object g of a few rows, bound by reading its tables, and the cp.async
+and mma.sync one (the table split in registers) for the rest.
 """
 from __future__ import annotations
 
@@ -26,9 +31,42 @@ import torch
 from .integrator import _complex_weights
 
 MAX_BLOCKS = 2**31 - 1    # one grid dimension
+SMS = 132                 # streaming multiprocessors of an H100
+# the kernel's variants, by their number in its C interface
+VARIANTS = ("mma16", "mma64", "wgmma", "fp32")
+FP32_ROWS = 4             # the fp32 variant's most rows an object (L R)
+# k8 steps between restarts of the wgmma variant's products (the tensor
+# cores' float32 accumulation truncates): at hom's depth 2M = 2048, 16
+# measured -118.7 dB against the twin, 32 -114.0 and 64 -108.5, past the
+# -110 dB bar (PERF.md); 16 keeps a margin for other data
+RESTART_K8 = 16
 
 # launches of the card's kernel (one per call)
 LAUNCHES = 0
+
+
+def variant_for(o: int, nl: int, r: int, c: int, m: int, og: int) -> str:
+    """The kernel variant for a call's shape, by the shape alone: wgmma
+    where one table's rows (all O R of a shared table, R of a per-object
+    one) fill 128-row tiles, those tiles fill the card and the TMA can
+    stride the modes (4 | M); fp32 for per-object tables of at most
+    FP32_ROWS rows an object (g of a few slots), which stream their tables
+    and are bound by those bytes; else mma (calls too small to fill the
+    card), 64 rows a block where that fills two blocks on each SM, else
+    16."""
+    shared = og == 1
+    rows = r * (o if shared else 1)
+    groups = 1 if shared else o
+    c_tiles = -(-c // 128)
+    if m % 4 == 0 and rows >= 128 and (
+            nl * groups * -(-rows // 128) * c_tiles >= SMS):
+        return "wgmma"
+    if not shared and m % 4 == 0 and nl * r <= FP32_ROWS:
+        return "fp32"
+    rows *= nl
+    big = -(-rows // 64)
+    return ("mma16" if rows <= 32 or big * groups * c_tiles < 2 * SMS
+            else "mma64")
 
 
 def _contract_xr(w: torch.Tensor, tbl: torch.Tensor) -> torch.Tensor:
@@ -56,7 +94,8 @@ def span_reduce_reference(t_re, t_im, v_re, v_im, b_re, b_im, off: int,
     return out if add is None else out + add
 
 
-def _launch(t_re, t_im, v_re, v_im, b_re, b_im, off, add):
+def _launch(t_re, t_im, v_re, v_im, b_re, b_im, off, add, planes,
+            variant):
     from . import _build
     lib = _build.load()
     o, r, m = v_re.shape
@@ -73,17 +112,40 @@ def _launch(t_re, t_im, v_re, v_im, b_re, b_im, off, add):
                          f"{tuple(t_re.shape)}, v {tuple(v_re.shape)}, "
                          f"table {tuple(b_re.shape)}")
     stride = 0 if b_re.shape[0] == 1 else (c + 1) * m
+    index = VARIANTS.index(variant)
     if o * nl * r > MAX_BLOCKS or lib.span_reduce_blocks(
-            o, nl, r, c, stride) > MAX_BLOCKS:
+            o, nl, r, c, stride, index) > MAX_BLOCKS:
         raise ValueError(f"{o} objects x {nl} listener rows x {r} rows "
                          "exceed the kernel's grid")
     t_re, v_re, v_im, b_re, b_im = (x.contiguous() for x in (
         t_re, v_re, v_im, b_re, b_im))
     t_im = None if t_im is None else t_im.contiguous()
     add = None if add is None else add.contiguous()
+    rows = [t_re, v_re, v_im, b_re, b_im] + ([] if t_im is None else [t_im])
+    lo_re = lo_im = None
+    if variant == "wgmma":
+        if planes is None:
+            from .span import span_planes
+            planes = span_planes(b_re, b_im)
+        lo_re, lo_im = planes.lo_re, planes.lo_im
+        for lo in (lo_re, lo_im):
+            if (lo.shape != b_re.shape or lo.device != b_re.device
+                    or lo.dtype != torch.float32 or not lo.is_contiguous()):
+                raise ValueError(f"span_reduce: lo plane {tuple(lo.shape)} "
+                                 f"on {lo.device} is not the table's "
+                                 f"{tuple(b_re.shape)} layout")
+        # the TMA reads from 16-byte aligned bases
+        if any(x.data_ptr() % 16 for x in rows + [lo_re, lo_im]):
+            raise ValueError(f"span_reduce ({variant}) needs every input "
+                             "16-byte aligned (the TMA's bases)")
+    if variant == "fp32" and (nl * r > FP32_ROWS or m % 4
+                              or b_re.data_ptr() % 16
+                              or b_im.data_ptr() % 16):
+        raise ValueError(f"span_reduce (fp32) takes L R <= {FP32_ROWS} rows "
+                         "an object and table rows of whole 16-byte "
+                         f"aligned float4s; got L R = {nl * r}, M = {m}")
     out = torch.empty((o, nl, r, c), dtype=torch.float32,
                       device=v_re.device)
-    rows = [t_re, v_re, v_im, b_re, b_im] + ([] if t_im is None else [t_im])
     # 16-byte loads need rows of whole float4s on 16-byte boundaries
     vec4 = int(m % 4 == 0 and all(x.data_ptr() % 16 == 0 for x in rows))
     pairs = int(c % 2 == 0 and out.data_ptr() % 8 == 0
@@ -92,10 +154,12 @@ def _launch(t_re, t_im, v_re, v_im, b_re, b_im, off, add):
         err = lib.span_reduce(
             t_re.data_ptr(), None if t_im is None else t_im.data_ptr(),
             v_re.data_ptr(), v_im.data_ptr(), b_re.data_ptr(),
-            b_im.data_ptr(), stride, None if add is None else add.data_ptr(),
-            out.data_ptr(), o, nl, r, c, m, off, vec4, pairs,
+            b_im.data_ptr(), None if lo_re is None else lo_re.data_ptr(),
+            None if lo_im is None else lo_im.data_ptr(), stride,
+            None if add is None else add.data_ptr(), out.data_ptr(), o, nl,
+            r, c, m, off, vec4, pairs, index, RESTART_K8,
             _build.launch_stream(v_re))
-    _build.check(err, "span_reduce")
+    _build.check(err, f"span_reduce ({variant})")
     return out
 
 
@@ -107,11 +171,13 @@ def span_reduce(t_re: torch.Tensor,           # [O, L, M] masked rows
                 b_im: torch.Tensor,
                 off: int,                     # first table row: 0 or 1
                 add: torch.Tensor | None = None,   # [O, L, R, C]
+                planes=None,                  # ops/span.py::SpanPlanes
                 ) -> torch.Tensor:
     """sum over modes of the complex weights of (t, v) against table rows
     off .. off+C-1, plus ``add`` -> [O, L, R, C]. CUDA tensors launch the
-    kernel (a failed build or launch raises); CPU tensors run the plain
-    twin."""
+    kernel's variant for the shape (variant_for; a failed build or launch
+    raises), its wgmma variant reading ``planes``, made for this call
+    when not given; CPU tensors run the plain twin."""
     global LAUNCHES
     dtypes = [t.dtype for t in (t_re, t_im, v_re, v_im, b_re, b_im, add)
               if t is not None]
@@ -136,7 +202,8 @@ def span_reduce(t_re: torch.Tensor,           # [O, L, M] masked rows
             f"[Og, C+1, M], add "
             f"{None if add is None else tuple(add.shape)} [O, L, R, C]")
     if v_re.is_cuda:
-        out = _launch(t_re, t_im, v_re, v_im, b_re, b_im, off, add)
+        out = _launch(t_re, t_im, v_re, v_im, b_re, b_im, off, add, planes,
+                      variant_for(o, t_re.shape[1], r, c, m, og))
         LAUNCHES += 1
         return out
     if v_re.device.type == "cpu":

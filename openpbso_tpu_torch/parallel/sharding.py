@@ -40,7 +40,8 @@ from ..config import DEFAULT_BLOCK
 from ..ops.coeffs import ModalBank
 from ..ops.forces import ForceSlots, SustainedState
 from ..ops.integrator import decay_block_blocked
-from ..ops.span import ChunkSpanTables, FullSpanTables, SpanTables
+from ..ops.span import (ChunkSpanTables, FullSpanTables, SpanPlanes,
+                        SpanTables)
 from ..runtime.solver import (_mixdown, _mixdown_span, advance_block,
                               step_span_sound)
 from ..runtime.state import SolverState
@@ -138,14 +139,20 @@ def span_table_specs(tables):
     replicates, the object axis follows the bank's layout. The full
     table ([M, N+1]) splits its mode axis 0. The superchunk powers of
     chunk tables split like the baby table (the JAX package's specs leave
-    them out, and its shard_span_tables raises on them)."""
+    them out, and its shard_span_tables raises on them); so do the
+    tables' SpanPlanes, so that each shard carries its own."""
     if isinstance(tables, FullSpanTables):
         return FullSpanTables(p_re=(None, 0), p_im=(None, 0))
     spec = (None, 2) if tables.shared else (0, 2)
     if isinstance(tables, SpanTables):
         return SpanTables(a_re=spec, a_im=spec, b_re=spec, b_im=spec)
+    # the planes split on their mode axis: 2 of the lo planes, 1 of the
+    # reversed copy [Og, M, C]
+    bt = (None, 1) if tables.shared else (0, 1)
+    planes = SpanPlanes(lo_re=spec, lo_im=spec, bt_re=bt, bt_im=bt,
+                        bt_lo_re=bt, bt_lo_im=bt)
     return ChunkSpanTables(b_re=spec, b_im=spec, n_chunks=None,
-                           s_re=spec, s_im=spec)
+                           s_re=spec, s_im=spec, planes=planes)
 
 
 def _sound_spec(sound: torch.Tensor) -> tuple:

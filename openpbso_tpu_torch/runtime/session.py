@@ -46,7 +46,8 @@ from ..ops.forces import (FORCE_GAUSSIAN, FORCE_HERTZ, FORCE_POINT,
                           ar_impulse_g, ar_stability_radius, slot_duration,
                           span_group)
 from ..ops.integrator import resolve_backend_name
-from ..ops.span import build_span_tables, choose_radix
+from ..ops.span import (ChunkSpanTables, build_span_tables, choose_radix,
+                        with_planes)
 from ..ops.integrator import decay_block_blocked
 from .solver import (SolverConfig, decay_block, decay_span_step,
                      default_gains, step_block, step_block_xfade, step_multi,
@@ -510,7 +511,12 @@ class ModalSession:
         and 512 blocks (chip_smoke.py phase 12a, PERF.md), and the two
         agree to float32 rounding (tests/test_torch_span.py). Tables put in
         the cache by hand (superchunk ones included) are used as they
-        are."""
+        are.
+
+        Cached chunked tables carry their SpanPlanes (ops/span.py::
+        with_planes), the layout the contraction kernels read, made once
+        per cached table: tables put in the cache without them get them at
+        their first use here."""
         if self._lam64 is None:
             return None
         span = n_blocks * self.config.block_size
@@ -521,7 +527,9 @@ class ModalSession:
                 self._lam64, chunk, radix=chunk,
                 num_modes=self.bank.num_modes, dtype=self._dtype,
                 device=self.device)
-            self._span_cache[chunk] = tables
+        if isinstance(tables, ChunkSpanTables) and tables.planes is None:
+            tables = with_planes(tables)
+        self._span_cache[chunk] = tables
         return dataclasses.replace(tables, n_chunks=span // chunk)
 
     def _span_bucket(self, with_sustained: bool) -> int | None:

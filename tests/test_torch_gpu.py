@@ -18,12 +18,13 @@ from openpbso_tpu_torch.ops import ar_noise as ka
 from openpbso_tpu_torch.ops import chunk_scan as k1
 from openpbso_tpu_torch.ops import fused_integrator as fi
 from openpbso_tpu_torch.ops import span_inject as k3
+from openpbso_tpu_torch.ops import span as span_mod
 from openpbso_tpu_torch.ops import span_reduce as k4
 from openpbso_tpu_torch.ops import toeplitz_conv as k2
 from openpbso_tpu_torch.ops.coeffs import build_modal_bank, lambda_from_modes
 from openpbso_tpu_torch.ops.forces import ar_impulse_g, make_sustained_state
 from openpbso_tpu_torch.ops.integrator import step_block_blocked
-from openpbso_tpu_torch.ops.span import build_span_tables
+from openpbso_tpu_torch.ops.span import build_span_tables, span_planes
 from openpbso_tpu_torch.runtime.session import ModalSession
 from openpbso_tpu_torch.runtime.solver import SolverConfig
 from openpbso_tpu_torch.utils.synth import CERAMIC, synth_mode_data
@@ -330,6 +331,10 @@ def _span_table(o, n, c, shared, device, num_modes=None):
     (256, 1, 512, 512, 1024, True, None),  # the span headline (nb=512)
     (70, 1, 20, 64, 1024, True, None),    # shared: 64-row tiles cross objects
     (70, 3, 20, 64, 1024, True, None),    # and slots, each row its own be
+    (30, 1, 40, 192, 1024, True, None),   # wgmma: C = 192, ragged tiles
+    (150, 2, 20, 64, 300, True, 384),     # wgmma: M = 384, K = 2
+    (2, 3, 600, 64, 1024, False, None),   # wgmma: per-object, 600 chunks
+    (200, 17, 8, 48, 1024, True, None),   # wgmma: K = 17, C ends mid-stage
 ])
 def test_span_inject_matches_twin(cuda, o, k, x, c, n, shared, num_modes):
     """The 3xTF32 injection GEMM is FP32-accurate: <= -110 dB against the
@@ -359,6 +364,10 @@ def test_span_inject_matches_twin(cuda, o, k, x, c, n, shared, num_modes):
     (3, 1, 20, 64, 40, True, False, 1, True, 42),      # 42 modes: scalars
     (256, 1, 512, 512, 1024, True, False, 1, True, None),  # the headline
     (256, 2, 20, 512, 200, True, True, 1, True, None),  # tiles cross rows
+    (300, 2, 20, 192, 200, True, True, 1, True, None),  # wgmma: C = 192
+    (300, 1, 60, 64, 300, True, False, 0, False, 384),  # wgmma: M = 384, g
+    (5, 1, 1000, 512, 200, False, False, 1, True, None),  # wgmma: per-object
+    (25, 2, 300, 64, 200, False, True, 0, False, None),  # wgmma: ditto, L = 2
 ])
 def test_span_reduce_matches_twin(cuda, o, nl, r, c, n, shared, cplx, off,
                                   add, num_modes):
@@ -380,6 +389,107 @@ def test_span_reduce_matches_twin(cuda, o, nl, r, c, n, shared, cplx, off,
     assert got.shape == (o, nl, r, c)
     _assert_kernel_matches_twin([got], [again],
                                 [k4.span_reduce_reference(*args)], db=-110)
+
+
+# (name, O, Og is O, K, X, C, M) of span_inject and (name, O, Og is O, L,
+# R, C, M, complex, off, add) of span_reduce: every variant of each kernel
+# is held against the twin at all of them, forced past variant_for
+INJECT_CASES = [
+    ("shared K=1", 40, False, 1, 20, 64, 256),
+    ("per-object K=3", 3, True, 3, 150, 192, 128),
+    ("shared K=17", 12, False, 17, 8, 64, 128),
+    ("per-object C=512", 2, True, 1, 130, 512, 384),
+]
+REDUCE_CASES = [
+    ("shared hom", 40, False, 1, 20, 64, 256, False, 1, True),
+    ("per-object g, L = 2, K = 2", 30, True, 2, 2, 512, 256, True, 0, False),
+    ("per-object g, K = 1", 40, True, 1, 1, 192, 384, False, 0, False),
+    ("shared g, L = 2", 200, False, 2, 1, 192, 128, True, 0, False),
+    ("per-object hom, L = 2", 2, True, 2, 150, 512, 384, True, 1, True),
+    ("per-object g, K = 17", 9, True, 1, 17, 64, 128, False, 0, False),
+]
+
+
+@pytest.mark.parametrize("variant", k3.VARIANTS)
+@pytest.mark.parametrize("case", INJECT_CASES, ids=[c[0] for c in
+                                                    INJECT_CASES])
+def test_every_span_inject_variant_matches_twin(cuda, case, variant):
+    """Each of the kernel's variants, whatever variant_for would pick,
+    <= -110 dB against the twin and bitwise repeatable."""
+    _, o, hetero, k, x, c, m = case
+    tables = _span_table(o, 40, c, not hetero, cuda, m)
+    rng = np.random.default_rng(14)
+    f = _randn(rng, o, k, x * c, device=cuda)
+    be = [_randn(rng, o, k, m, device=cuda) for _ in range(2)]
+    args = (f, *be, tables.b_re, tables.b_im)
+    planes = span_planes(tables.b_re, tables.b_im)
+    got = k3._launch(*args, planes, variant)
+    again = k3._launch(*args, planes, variant)
+    _assert_kernel_matches_twin(got, again, k3.span_inject_reference(*args),
+                                db=-110)
+
+
+@pytest.mark.parametrize("variant", k4.VARIANTS)
+@pytest.mark.parametrize("case", REDUCE_CASES, ids=[c[0] for c in
+                                                    REDUCE_CASES])
+def test_every_span_reduce_variant_matches_twin(cuda, case, variant):
+    _, o, hetero, nl, r, c, m, cplx, off, add = case
+    tables = _span_table(o, 40, c, not hetero, cuda, m)
+    rng = np.random.default_rng(15)
+    t_re = _randn(rng, o, nl, m, device=cuda)
+    t_im = _randn(rng, o, nl, m, device=cuda) if cplx else None
+    v = [_randn(rng, o, r, m, device=cuda) for _ in range(2)]
+    extra = _randn(rng, o, nl, r, c, device=cuda) if add else None
+    args = (t_re, t_im, *v, tables.b_re, tables.b_im, off, extra)
+    planes = span_planes(tables.b_re, tables.b_im)
+    if variant == "fp32" and nl * r > k4.FP32_ROWS:
+        with pytest.raises(ValueError, match="fp32"):
+            k4._launch(*args, planes, variant)
+        return
+    got = k4._launch(*args, planes, variant)
+    again = k4._launch(*args, planes, variant)
+    _assert_kernel_matches_twin([got], [again],
+                                [k4.span_reduce_reference(*args)], db=-110)
+
+
+@pytest.mark.parametrize("shared", [True, False])
+def test_span_planes_on_the_card_match_the_cpu(cuda, shared):
+    """The planes made on the card are bitwise the planes made on the CPU
+    from the same table (an exact layout step)."""
+    tables = _span_table(4, 200, 192, shared, cuda)
+    got = span_planes(tables.b_re, tables.b_im)
+    want = span_planes(tables.b_re.cpu(), tables.b_im.cpu())
+    for name in ("lo_re", "lo_im", "bt_re", "bt_im", "bt_lo_re", "bt_lo_im"):
+        assert getattr(got, name).is_cuda
+        assert torch.equal(getattr(got, name).cpu(), getattr(want, name))
+
+
+def test_wgmma_variants_refuse_misaligned_inputs(cuda):
+    """The wgmma variant reads through the TMA, whose bases are 16-byte
+    aligned: a view 4 bytes off raises, as does a plane of another
+    layout; the mma variants take the same view."""
+    tables = _span_table(256, 200, 512, True, cuda)
+    m = tables.b_re.shape[-1]
+    rng = np.random.default_rng(16)
+    f = _randn(rng, 256 * 512 * 32 + 1, device=cuda)[1:].reshape(
+        256, 1, 32 * 512)
+    be = [_randn(rng, 256, 1, m, device=cuda) for _ in range(2)]
+    assert k3.variant_for(256, 1, 32, 512, m, 1) == "wgmma"
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        k3.span_inject(f, *be, tables.b_re, tables.b_im)
+    _assert_kernel_matches_twin(
+        k3._launch(f, *be, tables.b_re, tables.b_im, None, "mma64"),
+        k3._launch(f, *be, tables.b_re, tables.b_im, None, "mma64"),
+        k3.span_inject_reference(f, *be, tables.b_re, tables.b_im), db=-110)
+    t = _randn(rng, 256 * m + 1, device=cuda)[1:].reshape(256, 1, m)
+    v = [_randn(rng, 256, 32, m, device=cuda) for _ in range(2)]
+    assert k4.variant_for(256, 1, 32, 512, m, 1) == "wgmma"
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        k4.span_reduce(t, None, *v, tables.b_re, tables.b_im, 1)
+    bad = span_planes(tables.b_re[:, :-1], tables.b_im[:, :-1])
+    with pytest.raises(ValueError, match="layout"):
+        k4.span_reduce(t.clone(), None, *v, tables.b_re, tables.b_im, 1,
+                       None, bad)
 
 
 def test_span_kernels_take_unaligned_rows(cuda):
@@ -420,10 +530,15 @@ def test_spans_go_through_the_contraction_kernels(cuda):
                      when=256 * (obj % 3))
     mods = (k1, k2, k3, k4, fi)
     before = [mod.LAUNCHES for mod in mods]
+    builds = span_mod.PLANE_BUILDS
     mix = sessions["span"].render_multi(10, blocks_per_dispatch=4)
     # one busy dispatch (block 0) and two ring-down ones
     assert [mod.LAUNCHES - b for mod, b in zip(mods, before)] == [
         3, 1, 1, 4, 0]
+    # the planes of the render's tables (chunks of 128 and 64), each
+    # built once
+    assert len(sessions["span"]._span_cache) == 2
+    assert span_mod.PLANE_BUILDS == builds + 2
     assert np.isfinite(mix).all() and np.abs(mix).max() > 0
     assert _db(mix, sessions["blocked"].render(10)) <= -90
 

@@ -356,6 +356,31 @@ def test_superchunk_powers_split_like_the_baby_table(hetero):
                 rows, :, j * m:(j + 1) * m]), name
 
 
+@pytest.mark.parametrize("mesh_shape", [(2, 4), (4, 2)])
+@pytest.mark.parametrize("hetero", [False, True])
+def test_sharded_tables_carry_the_planes_of_each_shard(hetero, mesh_shape):
+    """Each cell's SpanPlanes are the planes of its own baby table,
+    bitwise: the lo planes split on their mode axis 2, the reversed copy
+    [Og, M, C] on its axis 1, the object rows for a per-object bank."""
+    from openpbso_tpu_torch.ops import span as ts
+    bank, _, _ = _setup(hetero=hetero)
+    lam64 = np.asarray(bank.lam_re) + 1j * np.asarray(bank.lam_im)
+    jt = build_span_tables(lam64, 8 * S, radix=2 * S,
+                           num_modes=bank.num_modes, shared=not hetero)
+    whole = ts.with_planes(span_tables_from_numpy(_np(jt), device="cpu"))
+    _, tmesh = _meshes(mesh_shape)
+    grid = tsh.shard_span_tables(tmesh, whole)
+    for row in grid:
+        for cell in row:
+            own = ts.span_planes(cell.b_re, cell.b_im)
+            for name in ("lo_re", "lo_im", "bt_re", "bt_im", "bt_lo_re",
+                         "bt_lo_im"):
+                assert torch.equal(getattr(cell.planes, name),
+                                   getattr(own, name)), name
+            assert cell.planes.bt_re.shape == (
+                cell.b_re.shape[0], cell.b_re.shape[2], cell.chunk)
+
+
 def test_jax_shard_span_tables_refuses_superchunk_tables():
     """The JAX package's span_table_specs rebuilds ChunkSpanTables without
     s_re/s_im, so its shard_span_tables raises TypeError on superchunk

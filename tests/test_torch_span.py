@@ -153,11 +153,17 @@ def test_span_tables_bitwise_equal_jax(banks, layout, n_blocks):
 
 def _assert_tables_bitwise(tt, jt):
     """Every table of the port's tables bitwise the JAX tables' (None
-    where JAX's is None), and convert.py carries JAX's across unchanged."""
+    where JAX's is None), and convert.py carries JAX's across unchanged.
+    The port's chunk tables also have ``planes`` (the kernels' layout,
+    made where the tables are used), which neither builder attaches."""
     assert type(tt).__name__ == type(jt).__name__
     conv = span_tables_from_numpy(_np(jt), device="cpu")
     assert type(conv) is type(tt)
     for f in dataclasses.fields(tt):
+        if f.name == "planes":
+            assert tt.planes is None and conv.planes is None
+            assert not hasattr(jt, "planes")
+            continue
         got, ref = getattr(tt, f.name), getattr(jt, f.name)
         if not isinstance(got, torch.Tensor):
             assert got == ref == getattr(conv, f.name), f.name
@@ -777,6 +783,34 @@ def test_session_builds_and_caches_span_tables(session_assets):
     assert sess.span_tables_for(16).chunk == ts.choose_radix(16 * S) != S
     assert len(sess._span_cache) == 2
     assert _t_session(session_assets, lam64=False).span_tables_for(4) is None
+
+
+def test_session_builds_span_planes_once_per_chunk(session_assets):
+    """The session's cached tables carry their SpanPlanes, built once per
+    chunk size: spans of 4 and 2 blocks share one build, 16 blocks take
+    another; tables put in the cache without planes get them at their
+    first use, once."""
+    sess = _t_session(session_assets)
+    before = ts.PLANE_BUILDS
+    tables = sess.span_tables_for(4)
+    assert ts.PLANE_BUILDS == before + 1
+    want = ts.span_planes(tables.b_re, tables.b_im)
+    for name in ("lo_re", "lo_im", "bt_re", "bt_im", "bt_lo_re",
+                 "bt_lo_im"):
+        assert torch.equal(getattr(tables.planes, name),
+                           getattr(want, name)), name
+    before = ts.PLANE_BUILDS
+    assert sess.span_tables_for(2).planes is tables.planes
+    assert sess.span_tables_for(4).planes is tables.planes
+    assert ts.PLANE_BUILDS == before
+    assert sess.span_tables_for(16).planes is not None
+    assert ts.PLANE_BUILDS == before + 1
+    chunk = tables.chunk
+    sess._span_cache[chunk] = dataclasses.replace(tables, planes=None)
+    again = sess.span_tables_for(4)
+    assert again.planes is not None and ts.PLANE_BUILDS == before + 2
+    assert sess.span_tables_for(4).planes is again.planes
+    assert ts.PLANE_BUILDS == before + 2
 
 
 @pytest.mark.parametrize("layout", LAYOUTS)

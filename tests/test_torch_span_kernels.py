@@ -245,6 +245,8 @@ def wrapper_calls(monkeypatch):
     def counted(name, fn):
         def call(*args):
             calls[name] += 1
+            calls[f"{name} planes"] = args[-1] is not None and not (
+                isinstance(args[-1], (int, torch.Tensor)))
             return fn(*args)
         return call
     for name in calls:
@@ -252,18 +254,24 @@ def wrapper_calls(monkeypatch):
     return calls
 
 
+@pytest.mark.parametrize("planes", [False, True])
 @pytest.mark.parametrize("rows", ["plain", "listeners", "complex"])
 @pytest.mark.parametrize("layout", ["shared", "hetero"])
 def test_chunked_span_through_the_wrappers_matches_jax(
-        span_banks, layout, rows, wrapper_calls, dberr):
+        span_banks, layout, rows, planes, wrapper_calls, dberr):
     """integrate_span (one span_inject, two span_reduce) and decay_span
     (one span_reduce) of the chunked form against the JAX package's, on
-    plain, [L = 2, O, M] listener and complex rows."""
+    plain, [L = 2, O, M] listener and complex rows; with ``planes`` the
+    tables carry their SpanPlanes, as a session's do, and the wrappers
+    take them."""
     jbank, tbank, lam = span_banks[layout]
     n, c = 8 * 64, 128
     jt = js.build_span_tables(lam, n, radix=c, num_modes=M)
     tt = span_tables_from_numpy(jax.tree.map(np.asarray, jt), device="cpu")
     assert isinstance(tt, ts.ChunkSpanTables) and tt.n_chunks == 4
+    assert tt.planes is None        # left to be made where the tables live
+    if planes:
+        tt = ts.with_planes(tt)
     rng = np.random.default_rng(7)
     k = 2
     z = [_rand(rng, O, M) * 1e-3 for _ in range(2)]
@@ -283,7 +291,10 @@ def test_chunked_span_through_the_wrappers_matches_jax(
     before = (k3.LAUNCHES, k4.LAUNCHES)
     got = ts.integrate_span(t(z[0]), t(z[1]), tbank, tt, t(space), t(f),
                             t(tr), transfer_im=t(ti))
-    assert wrapper_calls == {"span_inject": 1, "span_reduce": 2}
+    assert (wrapper_calls["span_inject"], wrapper_calls["span_reduce"]) == (
+        1, 2)
+    assert wrapper_calls["span_inject planes"] == planes
+    assert wrapper_calls["span_reduce planes"] == planes
     for g, r in zip(got, ref):
         assert np.abs(np.asarray(r)).max() > 0
         assert dberr(g.numpy(), np.asarray(r)) <= -100
@@ -291,7 +302,129 @@ def test_chunked_span_through_the_wrappers_matches_jax(
                         transfer_im=j(ti))
     got = ts.decay_span(t(z[0]), t(z[1]), tbank, tt, t(tr),
                         transfer_im=t(ti))
-    assert wrapper_calls == {"span_inject": 1, "span_reduce": 3}
+    assert (wrapper_calls["span_inject"], wrapper_calls["span_reduce"]) == (
+        1, 3)
+    assert wrapper_calls["span_reduce planes"] == planes
     assert (k3.LAUNCHES, k4.LAUNCHES) == before
     for g, r in zip(got, ref):
         assert dberr(g.numpy(), np.asarray(r)) <= -100
+
+
+# ------------------------------------------------------------ the planes
+
+
+@pytest.mark.parametrize("c", [64, 192])
+@pytest.mark.parametrize("shared", [True, False])
+def test_span_planes_split_the_table_exactly(shared, c):
+    """span_planes on tables bitwise the JAX package's build_span_tables:
+    hi (the table with its low 13 bits cleared, what the tensor cores read
+    of it) + lo == the table bitwise, and the inject copy is the table's
+    first C rows reversed and transposed, [Og, M, C], with its own lo
+    plane, bitwise."""
+    lam = _lam(shared)
+    jt = js.build_span_tables(lam, 2 * c, radix=c, num_modes=M)
+    b_re, b_im = _table(shared, c)
+    assert np.array_equal(b_re.numpy(), np.asarray(jt.b_re))
+    assert np.array_equal(b_im.numpy(), np.asarray(jt.b_im))
+    before = ts.PLANE_BUILDS
+    p = ts.span_planes(b_re, b_im)
+    assert ts.PLANE_BUILDS == before + 1
+
+    def hi(x):
+        return (x.view(torch.int32) & -8192).view(torch.float32)
+    for b, lo, bt, bt_lo in ((b_re, p.lo_re, p.bt_re, p.bt_lo_re),
+                             (b_im, p.lo_im, p.bt_im, p.bt_lo_im)):
+        assert lo.shape == b.shape and bt.shape == (b.shape[0], M, c)
+        assert torch.equal(hi(b) + lo, b)
+        assert not (hi(b).view(torch.int32) & 0x1FFF).any()
+        assert torch.equal(bt, b[:, :c].flip(1).transpose(1, 2))
+        assert bt.is_contiguous() and lo.is_contiguous()
+        assert torch.equal(hi(bt) + bt_lo, bt)
+        assert torch.equal(bt_lo, lo[:, :c].flip(1).transpose(1, 2))
+        assert lo.abs().max() > 0 and lo.abs().max() < 2e-3 * b.abs().max()
+
+
+def test_span_planes_refuse_other_dtypes():
+    b = torch.zeros((1, 5, 8), dtype=torch.float64)
+    with pytest.raises(ValueError, match="float32"):
+        ts.span_planes(b, b)
+
+
+def test_with_planes_builds_once_and_keeps_given_planes():
+    b_re, b_im = _table(False, 64)
+    t = ts.ChunkSpanTables(b_re=b_re, b_im=b_im, n_chunks=2)
+    before = ts.PLANE_BUILDS
+    tp = ts.with_planes(t)
+    assert ts.PLANE_BUILDS == before + 1 and tp.planes is not None
+    assert ts.with_planes(tp) is tp and ts.PLANE_BUILDS == before + 1
+    short = ts.dataclasses.replace(tp, n_chunks=1)
+    assert short.planes is tp.planes        # a span length keeps them
+    t64 = ts.ChunkSpanTables(b_re=b_re.double(), b_im=b_im.double(),
+                             n_chunks=2)
+    assert ts.with_planes(t64).planes is None   # the kernels take float32
+
+
+@pytest.mark.parametrize("shared", [True, False])
+def test_wrappers_take_planes_on_the_cpu(shared):
+    """CPU tensors run the twin whether or not planes are given: the
+    same result, bitwise."""
+    rng = np.random.default_rng(21)
+    b_re, b_im = _table(shared, 64)
+    p = ts.span_planes(b_re, b_im)
+    f = torch.from_numpy(_rand(rng, O, 2, 3 * 64))
+    be = [torch.from_numpy(_rand(rng, O, 2, M)) for _ in range(2)]
+    for a, b in zip(k3.span_inject(f, *be, b_re, b_im),
+                    k3.span_inject(f, *be, b_re, b_im, p)):
+        assert torch.equal(a, b)
+    t = torch.from_numpy(_rand(rng, O, 1, M))
+    v = [torch.from_numpy(_rand(rng, O, 3, M)) for _ in range(2)]
+    add = torch.from_numpy(_rand(rng, O, 1, 3, 64))
+    assert torch.equal(k4.span_reduce(t, None, *v, b_re, b_im, 1, add),
+                       k4.span_reduce(t, None, *v, b_re, b_im, 1, add, p))
+
+
+# ----------------------------------------------------------- the routing
+
+
+@pytest.mark.parametrize("args,want", [
+    ((256, 1, 512, 512, 1024, 1), "wgmma"),       # hom, shared nb=512
+    ((256, 1, 1024, 512, 1024, 256), "wgmma"),    # hom, hetero nb=1024
+    ((256, 2, 20, 512, 1024, 1), "wgmma"),        # hom, shared, L = 2
+    ((256, 1, 1, 512, 1024, 1), "mma16"),         # g, shared: 256 rows
+    ((256, 1, 1, 512, 1024, 256), "fp32"),        # g, per-object
+    ((256, 2, 2, 512, 1024, 256), "fp32"),        # g, per-object, L R = 4
+    ((256, 1, 16, 512, 1024, 256), "mma16"),      # hom, hetero nb=16
+    ((256, 1, 17, 64, 1024, 256), "mma16"),       # g, one-block span
+    ((256, 1, 5, 512, 1024, 256), "mma16"),       # g, per-object, 5 slots
+    ((256, 1, 1, 512, 42, 256), "mma16"),         # g, 42 modes: no float4
+    ((256, 2, 16, 512, 1024, 256), "mma16"),      # 8c's L = 2 hom
+    ((64, 1, 16, 512, 512, 64), "mma16"),         # a (2, 2) shard's hom
+    ((64, 1, 1, 512, 512, 64), "fp32"),           # a (2, 2) shard's g
+    ((256, 1, 512, 512, 42, 1), "mma64"),         # 42 modes: no TMA
+    ((3, 1, 40, 64, 128, 1), "mma16"),            # too few tiles
+])
+def test_span_reduce_variant_by_shape(args, want):
+    """The variant follows from the shape alone: the same answer every
+    time, wgmma where one table's rows fill 128-row tiles that fill the
+    card."""
+    assert k4.variant_for(*args) == want
+    assert k4.variant_for(*args) == want
+    assert want in k4.VARIANTS
+
+
+@pytest.mark.parametrize("args,want", [
+    ((256, 1, 512, 512, 1024, 1), "wgmma"),       # shared nb=512
+    ((256, 1, 1024, 512, 1024, 256), "wgmma"),    # hetero nb=1024
+    ((256, 1, 16, 512, 1024, 1), "wgmma"),        # shared nb=16
+    ((256, 1, 16, 512, 1024, 256), "mma16"),      # hetero nb=16
+    ((256, 4, 16, 512, 1024, 256), "mma16"),      # hetero nb=16, K = 4
+    ((256, 17, 8, 64, 1024, 256), "mma16"),       # one-block, full bucket
+    ((64, 1, 16, 512, 512, 64), "mma16"),         # a (2, 2) shard
+    ((256, 1, 512, 7, 1024, 1), "mma64"),         # odd chunk: no TMA
+    ((70, 3, 20, 64, 1024, 1), "wgmma"),          # 128-row tiles cross objects
+    ((70, 3, 20, 64, 384, 1), "mma16"),           # too few tiles
+])
+def test_span_inject_variant_by_shape(args, want):
+    assert k3.variant_for(*args) == want
+    assert k3.variant_for(*args) == want
+    assert want in k3.VARIANTS
