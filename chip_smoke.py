@@ -72,7 +72,13 @@ Phases, in order; any failure raises and the script exits non-zero:
    dispatches, and the stream's share of them (all but start()'s warmup)
    against what the engine's recorded events and the blocks of each
    dispatch imply without the session (reckon_launches); the profiler's
-   per-block statistics, warmup seconds and first block; (e) the fused
+   per-block statistics, warmup seconds and first block; then the two
+   span streams again with a rattle (bench/stream_ab.py::rattle_schedule:
+   two soft hits a block on one of four objects in turn), so every span
+   takes the full slot table (K = 16, 17 with the drags): the span
+   contractions' shapes and variants counted over the stream (stacked
+   and split must take the full table), the first 20 blocks against an
+   offline per-block replay of the recorded events (<= -90 dB); (e) the fused
    engine paced at the audio rate for ~3 s with hits arriving live: no
    late block that a stall of the whole process (a watchdog thread's late
    wake) does not explain, no missed block beyond the late ones, p99
@@ -196,14 +202,17 @@ Phases, in order; any failure raises and the script exits non-zero:
    threads, whole and in order;
 13. the span's mode contractions: span_inject and span_reduce (g and hom)
    against their twins (<= -110 dB, bitwise repeatable) and timed (CUDA
-   events, profiler device time, the twin, the cuBLAS SGEMM pair of the
-   same contraction as a yardstick, the bound of bench/roofline.py) at
-   the main path's shapes: shared 256x1024 nb=512 (C = X = 512), hetero
-   nb=1024 and nb=16 (5b's spans), the engine's one-block span (C = 64,
-   X = 8, K = 17), phase 8c's L = 2 complex rows and a (2, 2) shard's
-   (8c's and 10b's captured inputs); then phase 5's busy dispatch at
-   shared nb=512 and hetero nb=1024 and nb=16 through the twin-composed
-   stages and the kernels, synced, A B B A, and 7d's engine p50/p99.
+   events over one chain of 100 calls, the profiler's device time, retaken
+   while it reads below the bound and else the chained time, the twin, the
+   cuBLAS SGEMM pair of the same contraction as a yardstick, chained too,
+   the bound of bench/roofline.py) at the main path's shapes: shared
+   256x1024 nb=512 (C = X = 512), hetero nb=1024 and nb=16 (5b's spans),
+   the engine's one- and four-block spans (C = 64 and 256, X = 8, K = 17,
+   with toeplitz_conv beside one cuDNN conv1d), phase 8c's L = 2 complex
+   rows and a (2, 2) shard's (8c's and 10b's captured inputs); then
+   phase 5's busy dispatch at shared nb=512 and hetero nb=1024 and nb=16
+   through the twin-composed stages and the kernels, synced, A B B A, and
+   7d's engine p50/p99.
    Phases 5b, 8c and 10b also hold both kernels against their twins on
    their dispatches' own inputs.
 
@@ -418,12 +427,15 @@ def time_ms(fn, runs=TIMED_RUNS) -> float:
     return statistics.median(a.elapsed_time(b) for a, b in pairs)
 
 
-def device_ms(fn, kernel, runs=TIMED_RUNS, traces=3) -> float:
+def device_ms(fn, kernel, runs=TIMED_RUNS, traces=3, floor=None):
     """Device time (ms) of one launch of the CUDA kernel ``kernel`` that
     ``fn`` makes, from torch.profiler's trace of ``runs`` calls: the median
     duration. The tracer may drop records of a window, now and then all of
-    them: a trace holding fewer than half the launches is taken again, up
-    to ``traces`` times; more than one launch a call raises at once."""
+    them, and truncates some of a short call's: a trace holding fewer than
+    half the launches, or with ``floor`` (the call's bound) a median below
+    it, is taken again, up to ``traces`` times; more than one launch a call
+    raises at once. When no trace gives a reading, raises, or with
+    ``floor`` returns None (the caller has another)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -439,12 +451,26 @@ def device_ms(fn, kernel, runs=TIMED_RUNS, traces=3) -> float:
                  if e.device_type == DeviceType.CUDA and kernel in e.name]
         check(len(times) <= runs, f"the profiler saw {len(times)} launches "
               f"of {kernel} in {runs} calls")
-        if len(times) >= runs // 2:
-            return statistics.median(times) / 1e3
+        kept = len(times) >= runs // 2
+        ms = statistics.median(times) / 1e3 if kept else None
+        if kept and (floor is None or ms >= floor):
+            return ms
         print(f"device time: the profiler kept {len(times)} of {runs} "
-              f"launches of {kernel}; tracing again", flush=True)
-    check(False, f"the profiler kept fewer than {runs // 2} of {runs} "
-          f"launches of {kernel} in {traces} traces")
+              f"launches of {kernel}, median {ms} ms against a floor of "
+              f"{floor} ms; tracing again", flush=True)
+    check(floor is not None, f"the profiler kept fewer than {runs // 2} of "
+          f"{runs} launches of {kernel} in {traces} traces")
+    return None
+
+
+def device_times(fn, name, bound, chained) -> dict:
+    """A phase-13 call's device time: the profiler's (device_ms, its floor
+    the call's bound), else, where no trace kept its launches with a
+    median at or above the bound, the chained time ``chained``;
+    ``device_from`` says which."""
+    ms = device_ms(fn, CUDA_NAMES[name], floor=bound["bound_ms"])
+    return ({"device_ms": ms, "device_from": "profiler"} if ms is not None
+            else {"device_ms": chained, "device_from": "chain"})
 
 
 def enqueue_ms(fn, runs=TIMED_RUNS) -> float:
@@ -468,7 +494,7 @@ def toeplitz_case(label, g, f, timed=True) -> dict:
     cores) and 3xTF32 (tensor cores) bounds of bench/roofline.py."""
     import torch
     from openpbso_tpu_torch.bench import roofline
-    from openpbso_tpu_torch.bench.toeplitz_ab import conv1d_call
+    from openpbso_tpu_torch.bench.toeplitz_ab import chain_ms, conv1d_call
     from openpbso_tpu_torch.ops import toeplitz_conv as k2
     got, again, plain = (fn(g, f) for fn in (
         k2.toeplitz_conv, k2.toeplitz_conv, k2.toeplitz_conv_reference))
@@ -486,12 +512,12 @@ def toeplitz_case(label, g, f, timed=True) -> dict:
     del got, again, plain
     if timed:
         call, _ = conv1d_call(g, f)
-        out["ms"] = time_ms(lambda: k2.toeplitz_conv(g, f))
-        out["device_ms"] = device_ms(lambda: k2.toeplitz_conv(g, f),
-                                     CUDA_NAMES["toeplitz_conv"])
-        out["plain_ms"] = time_ms(lambda: k2.toeplitz_conv_reference(g, f))
-        out["library_ms"] = time_ms(call)
         bound = roofline.toeplitz_conv(o, nl, k, f.shape[2], c)
+        out["ms"] = chain_ms(lambda: k2.toeplitz_conv(g, f))
+        out.update(device_times(lambda: k2.toeplitz_conv(g, f),
+                                "toeplitz_conv", bound, out["ms"]))
+        out["plain_ms"] = time_ms(lambda: k2.toeplitz_conv_reference(g, f))
+        out["library_ms"] = chain_ms(call)
         out.update(bound_ms=bound["bound_ms"], bound_by=bound["bound_by"],
                    tflops=bound["flops"] / out["ms"] / 1e9,
                    share_fp32_bound=bound["fp32_ms"] / out["ms"],
@@ -1667,12 +1693,16 @@ def stats_dict(engine) -> dict:
 
 
 def engine_stream(label, scene, lam64, lookahead, rng, session=None,
-                  shards=1) -> dict:
+                  shards=1, rattle=False) -> dict:
     """One unpaced engine stream of phase 7d (or 10d: ``session`` a
     ShardedSession over phase 4's scene, whose ``shards`` each launch
-    their own kernels); returns its produced audio, launch counts and
-    statistics."""
+    their own kernels), with ``rattle`` soft hits on a few objects at
+    every block (bench/stream_ab.py::rattle_schedule); returns its
+    produced audio, recorded events, launch counts, the span
+    contractions' shapes and variants over the stream, and statistics."""
     import torch
+    from openpbso_tpu_torch.bench.stream_ab import (count_variants,
+                                                    rattle_schedule)
     from openpbso_tpu_torch.runtime.audio import RawCollectorSink
     from openpbso_tpu_torch.runtime.engine import StreamingEngine
     sess = session or live_session(scene, lam64=lam64)
@@ -1708,6 +1738,8 @@ def engine_stream(label, scene, lam64, lookahead, rng, session=None,
         (100, lambda: [engine.sustained_update(o, v)
                        for o, v in zip(dragged, spaces[1])]),
         (150, lambda: [engine.sustained_end(o) for o in dragged])]
+    if rattle:
+        schedule += rattle_schedule(engine, O, M)
     schedule.sort(key=lambda e: e[0])
 
     # the counted window is the engine's own run, start() to stop()
@@ -1715,7 +1747,8 @@ def engine_stream(label, scene, lam64, lookahead, rng, session=None,
     t = time.perf_counter()
     engine.start()
     start_s = time.perf_counter() - t
-    qnorm = drive(engine, ENGINE_BLOCKS, schedule)
+    with count_variants() as variants:
+        qnorm = drive(engine, ENGINE_BLOCKS, schedule)
     health = dict(health=engine.health.health, missed=engine.health.missed)
     engine.stop()
     counts = read_launches()
@@ -1772,21 +1805,28 @@ def engine_stream(label, scene, lam64, lookahead, rng, session=None,
            "health_before_stop": health,
            "collected_blocks": len(sink.blocks),
            "start_s_first": start_s, "warmup_s_again": warm_s,
-           "stats": stats_dict(engine)}
+           "variants": variants, "stats": stats_dict(engine)}
     print(f"engine {label}:", json.dumps(out), flush=True)
-    return dict(out, audio=audio[:ENGINE_COMPARED * S])
+    return dict(out, audio=audio[:ENGINE_COMPARED * S],
+                recorded=list(engine.recorded))
 
 
 def phase_engine(scene, lam64, rng) -> dict:
     """Phase 7d: the engine, unpaced, over the fused per-block path and
-    over one-block and four-block spans."""
+    over one-block and four-block spans; then the two span streams with a
+    rattle on top (the session's full slot table, K = 16 and 17 with the
+    drags), each held against the offline per-block replay of its
+    recorded events."""
     fused = engine_stream("(i) fused per block", scene, None, 1, rng)
     span1 = engine_stream("(ii) one-block spans", scene, lam64, 1, rng)
     span4 = engine_stream("(ii) four-block spans", scene, lam64, 4, rng)
+    rattle1, rattle4 = (engine_stream(f"(iii) {n}-block spans, rattle",
+                                      scene, lam64, b, rng, rattle=True)
+                        for n, b in (("one", 1), ("four", 4)))
     span_kernels = ("chunk_scan", "toeplitz_conv", "span_inject",
                     "span_reduce", "ar_noise")
     for name, k in ([("fused_block", fused), ("ar_block", fused)]
-                    + [(n, e) for e in (span1, span4)
+                    + [(n, e) for e in (span1, span4, rattle1, rattle4)
                        for n in span_kernels]):
         check(k["launches"][name] > 0, f"an engine stream never launched "
               f"{name}: {k['launches']}")
@@ -1799,14 +1839,36 @@ def phase_engine(scene, lam64, rng) -> dict:
            "db_span4_engine_vs_fused_engine":
            db_error(span4["audio"], fused["audio"])}
     check(float(np.abs(offline).max()) > 0, "offline render is silent")
+    full_tables = {}
+    for label, e in (("one-block", rattle1), ("four-block", rattle4)):
+        # the full table reached the short variants: an injection of 16 or
+        # 17 slots through stacked, a g of as many rows through split
+        full = {key: n for key, n in e["variants"].items()
+                if key.startswith(("span_inject K=16 ", "span_inject K=17 ",
+                                   "span_reduce rows=16 ",
+                                   "span_reduce rows=17 "))}
+        check(any(k.startswith("span_inject") and k.endswith(": stacked")
+                  for k in full)
+              and any(k.startswith("span_reduce") and k.endswith(": split")
+                      for k in full),
+              f"7d {label} rattle: the full slot table never went through "
+              f"stacked and split: {e['variants']}")
+        full_tables[label] = full
+        replay = replay_engine_events(live_session(scene), None,
+                                      e["recorded"], ENGINE_COMPARED)
+        out[f"db_{label}_rattle_vs_offline_replay"] = db_error(e["audio"],
+                                                               replay)
     for key, db in out.items():
         check(db <= -90.0, f"{key} {db} dB")
-    print("engine, first blocks:", json.dumps(out), flush=True)
-    for label, e in (("fused", fused), ("one-block spans", span1),
-                     ("four-block spans", span4)):
+    print("engine, first blocks:", json.dumps(
+        dict(out, rattle_full_table=full_tables)), flush=True)
+    streams = (("fused", fused), ("one-block spans", span1),
+               ("four-block spans", span4),
+               ("one-block spans, rattle", rattle1),
+               ("four-block spans, rattle", rattle4))
+    for label, e in streams:
         ENGINE_STATS[label] = {k: e["stats"][k] for k in ("p50_ms", "p99_ms")}
-    return {k: sum(e["launches"][k] for e in (fused, span1, span4))
-            for k in KERNELS}
+    return {k: sum(e["launches"][k] for _, e in streams) for k in KERNELS}
 
 
 @contextlib.contextmanager
@@ -4762,6 +4824,7 @@ def contraction_timing(label, kind, args) -> dict:
     (bench/roofline.py)."""
     import torch
     from openpbso_tpu_torch.bench import roofline
+    from openpbso_tpu_torch.bench.toeplitz_ab import chain_ms
     from openpbso_tpu_torch.ops import span_inject as k3
     from openpbso_tpu_torch.ops import span_reduce as k4
     name = "span_inject" if kind == "span_inject" else "span_reduce"
@@ -4780,16 +4843,17 @@ def contraction_timing(label, kind, args) -> dict:
         bound = roofline.span_reduce(o, og, nl, v_re.shape[1], c, m,
                                      add is not None, cplx=t_im is not None)
         out["variant"] = k4.variant_for(o, nl, v_re.shape[1], c, m, og)
-    out["ms"] = time_ms(lambda: kernel(*args))
+    out["ms"] = chain_ms(lambda: kernel(*args))
     out["enqueue_ms"] = enqueue_ms(lambda: kernel(*args))
-    out["device_ms"] = device_ms(lambda: kernel(*args), CUDA_NAMES[name])
+    out.update(device_times(lambda: kernel(*args), name, bound, out["ms"]))
     out["plain_ms"] = time_ms(lambda: twin(*args), runs=10)
     call = library_call(kind, args)
-    out["library_ms"] = time_ms(call)
+    out["library_ms"] = chain_ms(call)
     del call
     torch.cuda.empty_cache()
     out.update(bound_ms=bound["bound_ms"], bound_by=bound["bound_by"],
                share_bound=bound["bound_ms"] / out["device_ms"],
+               share_bound_events=bound["bound_ms"] / out["ms"],
                tflops=bound["flops"] / out["device_ms"] / 1e9)
     print("contraction case:", json.dumps(out), flush=True)
     return out
@@ -4846,18 +4910,19 @@ def phase_contractions(hetero, lam64, shared, shared_tables, hetero_tables,
                        seed) -> dict:
     """Phase 13: span_inject and span_reduce (g, hom) at the main path's
     shapes, each against its twin and timed beside it, its SGEMM pair and
-    its bound; the whole busy dispatch twin-composed against the kernels,
-    A B B A; 7d's engine p50/p99 as they stand. Returns the shared
-    nb=512 entries (the kernels line's)."""
+    its bound; toeplitz_conv at the one- and four-block spans' shapes
+    beside conv1d and its bound; the whole busy dispatch twin-composed
+    against the kernels, A B B A; 7d's engine p50/p99 as they stand.
+    Returns the shared nb=512 entries (the kernels line's)."""
     import torch
-    one_block = session_span_tables(hetero, lam64, 1)
-    check((one_block.chunk, one_block.n_chunks) == (64, 8),
-          f"13: one-block tables C={one_block.chunk} X={one_block.n_chunks}")
     render_span = session_span_tables(hetero, lam64, SPAN_DISPATCH)
     built = {"shared nb=512": (shared_tables, 1, 1, False),
              "hetero nb=1024": (hetero_tables, 1, 1, False),
-             "hetero nb=16 (5b's spans)": (render_span, 1, 1, False),
-             "one-block span, full bucket + AR": (one_block, 17, 1, False)}
+             "hetero nb=16 (5b's spans)": (render_span, 1, 1, False)}
+    # the live stream's spans (lookahead 1 and 4): X = 8 chunks of a
+    # per-object table, a full slot bucket and the AR channel (K = 17)
+    short = {"one-block span, full bucket + AR": (1, 64),
+             "four-block span, full bucket + AR": (4, 256)}
     out = {}
     for i, (label, (tables, k, nl, cplx)) in enumerate(built.items()):
         inputs = contraction_inputs(tables, k, nl, cplx, seed + i)
@@ -4865,12 +4930,34 @@ def phase_contractions(hetero, lam64, shared, shared_tables, hetero_tables,
                       for kind, args in inputs.items()}
         del inputs
         torch.cuda.empty_cache()
+    gen = torch.Generator(device=hetero.device).manual_seed(seed)
+    for i, (label, (n_blocks, chunk)) in enumerate(short.items()):
+        tables = session_span_tables(hetero, lam64, n_blocks)
+        check((tables.chunk, tables.n_chunks) == (chunk, 8),
+              f"13: {label} tables C={tables.chunk} X={tables.n_chunks}")
+        inputs = contraction_inputs(tables, 17, 1, False,
+                                    seed + len(built) + i)
+        out[label] = {kind: contraction_timing(label, kind, args)
+                      for kind, args in inputs.items()}
+        g, f = (torch.randn(shape, generator=gen, device=hetero.device)
+                for shape in ((O, 1, 17, chunk), (O, 17, 8, chunk)))
+        out[label]["toeplitz_conv"] = toeplitz_case(f"13 {label}", g, f)
+        del inputs, tables, g, f
+        torch.cuda.empty_cache()
     for label, inputs in CONTRACTION_INPUTS.items():
         out[label] = {kind: contraction_timing(label, kind, args)
                       for kind, args in inputs.items()}
     CONTRACTION_INPUTS.clear()
-    del one_block
     torch.cuda.empty_cache()
+    for label, row in out.items():
+        for kind, e in row.items():
+            print(f"13 share: {label}, {kind} ({e.get('variant', 'conv')}): "
+                  f"events {e['ms']} ms (chained), device {e['device_ms']} "
+                  f"ms ({e['device_from']}), "
+                  f"library {e['library_ms']} ms, bound {e['bound_ms']} ms "
+                  f"({e['bound_by']}), share {e['bound_ms'] / e['ms']:.3f} "
+                  f"events, {e['bound_ms'] / e['device_ms']:.3f} device",
+                  flush=True)
     dispatch = [dispatch_ab("shared nb=512", shared, shared_tables,
                             SPAN_CASES[0][1], seed),
                 dispatch_ab("hetero nb=1024", hetero, hetero_tables,
@@ -4885,7 +4972,8 @@ def phase_contractions(hetero, lam64, shared, shared_tables, hetero_tables,
         "card": smi, "dispatch_ab": dispatch, "engine_7d": ENGINE_STATS,
         "ms": {label: {kind: e["ms"] for kind, e in v.items()}
                for label, v in out.items()},
-        "variant": {label: {kind: e["variant"] for kind, e in v.items()}
+        "variant": {label: {kind: e.get("variant", "conv")
+                            for kind, e in v.items()}
                     for label, v in out.items()}}), flush=True)
     head = out["shared nb=512"]
     return {"span_inject": head["span_inject"], "span_reduce": head["hom"]}

@@ -2,7 +2,7 @@
 
     python -m openpbso_tpu_torch.bench.span_ab \\
         [--variant NAME=PATH.cu[@VARIANT] ...] [--restarts 4,8,16]
-        [--out span_ab.json]
+        [--shapes 1block,4block] [--out span_ab.json]
 
 Each variant's source (by default this checkout's csrc/span_inject.cu and
 csrc/span_reduce.cu, named "inject" and "reduce") is built alone with nvcc
@@ -12,13 +12,16 @@ library that exports ``span_inject`` is timed at the injection shapes, one
 that exports ``span_reduce`` at the reduction shapes. A source that takes
 the table's planes (this checkout's: ops/span.py::span_planes, made once a
 shape, and the variant that ops/span_*.py::variant_for picks for the
-shape, or the one named after ``@``: mma16, mma64, wgmma, fp32) is called
+shape, or the one named after ``@``: mma16, mma64, wgmma, stacked for
+span_inject, mma16, mma64, wgmma, fp32, split for span_reduce) is called
 with them; an older one (the first version's, which reads the table
 alone) without. At each shape every variant is held against the plain
 twin (dB, bitwise repeatable; a variant that cannot take the shape is
 reported and not timed), then the variants of that kernel are timed in
-turns, in the order A B .. B A, each turn the median of 30
-CUDA-event-timed launches, beside the bound of bench/roofline.py.
+turns, in the order A B .. B A, each turn one chain of 100 launches
+between two CUDA events (toeplitz_ab.chain_ms), beside the bound of
+bench/roofline.py. ``--shapes`` keeps the shapes whose names hold one of
+its comma-separated words.
 ``--restarts`` also gives, for each variant that takes the planes, its dB
 at each of those restart intervals (k8 steps; ops/span_*.py::RESTART_K8).
 Prints one JSON line per shape and writes all of them to --out. Fails
@@ -41,7 +44,7 @@ import os
 import subprocess
 import sys
 
-from .toeplitz_ab import db_error, time_ms
+from .toeplitz_ab import chain_ms, db_error
 
 # name, O, Og (1: shared), K, X (rows: chunks), C
 INJECT_SHAPES = (
@@ -51,6 +54,10 @@ INJECT_SHAPES = (
     ("shared_nb16", 256, 1, 1, 16, 512),
     ("span_1block_k17", 256, 256, 17, 8, 64),
     ("hetero_nb16_k4", 256, 256, 4, 16, 512),
+    ("span_4block_k17", 256, 256, 17, 8, 256),
+    ("span_1block_k2", 256, 256, 2, 8, 64),
+    ("span_1block_k3", 256, 256, 3, 8, 64),
+    ("span_1block_k5", 256, 256, 5, 8, 64),
 )
 REDUCE_SHAPES = (   # name, O, Og, L, R, C, add
     ("hom_shared_nb512", 256, 1, 1, 512, 512, True),
@@ -59,6 +66,10 @@ REDUCE_SHAPES = (   # name, O, Og, L, R, C, add
     ("g_shared", 256, 1, 1, 1, 512, False),
     ("g_hetero", 256, 256, 1, 1, 512, False),
     ("g_1block_k17", 256, 256, 1, 17, 64, False),
+    ("g_4block_k17", 256, 256, 1, 17, 256, False),
+    ("hom_1block", 256, 256, 1, 8, 64, True),
+    ("hom_4block", 256, 256, 1, 8, 256, True),
+    ("g_1block_k5", 256, 256, 1, 5, 64, False),
 )
 M = 1024
 
@@ -80,11 +91,16 @@ def build(name: str, src: str) -> str:
     return lib
 
 
+_BUILT = {}   # source path -> its library (variants forced on one build)
+
+
 class Variant:
     def __init__(self, name: str, src: str):
         self.name = name
         src, _, self.forced = src.partition("@")
-        self.lib = ctypes.CDLL(build(name, src))
+        if src not in _BUILT:
+            _BUILT[src] = build(name, src)
+        self.lib = ctypes.CDLL(_BUILT[src])
         with open(src) as fh:
             self.planes = "lo_re" in fh.read()   # this version's interface
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
@@ -219,7 +235,7 @@ def run_shape(kind, shape, variants, seed, dev, restarts=()) -> dict:
     order = taken + taken[::-1]
     times = {v.name: [] for v in taken}
     for v in order:
-        times[v.name].append(time_ms(lambda: v(args, planes)))
+        times[v.name].append(chain_ms(lambda: v(args, planes)))
     for v in taken:
         res[v.name]["ms"] = times[v.name]
         res[v.name]["share"] = bound["bound_ms"] / min(times[v.name])
@@ -235,6 +251,9 @@ def main(argv=None) -> int:
                         help="NAME=PATH.cu[@VARIANT] (repeatable)")
     parser.add_argument("--restarts", default="",
                         help="restart intervals (k8 steps) to give dB at")
+    parser.add_argument("--shapes", default="",
+                        help="keep shapes whose names hold one of these "
+                        "comma-separated words")
     parser.add_argument("--out", default="span_ab.json")
     parser.add_argument("--seed", type=int, default=0)
     args = parser.parse_args(argv)
@@ -256,7 +275,10 @@ def main(argv=None) -> int:
         vs = [v for v in variants if v.kind == kind]
         if not vs:
             continue
+        words = [w for w in args.shapes.split(",") if w]
         for i, shape in enumerate(shapes):
+            if words and not any(w in shape[0] for w in words):
+                continue
             out["shapes"].append(run_shape(
                 kind, shape, vs, args.seed + i, dev,
                 [int(k) for k in args.restarts.split(",") if k]))

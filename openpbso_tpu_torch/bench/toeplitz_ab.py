@@ -95,6 +95,31 @@ def time_ms(fn, runs=RUNS) -> float:
     return statistics.median(a.elapsed_time(b) for a, b in pairs)
 
 
+CHAIN = 100                  # launches in one chain_ms chain
+SLEEP_CYCLES = 20_000_000    # ~10 ms of the card's clock: the host's lead
+
+
+def chain_ms(fn, n=CHAIN) -> float:
+    """One call's device time (ms): one chain of ``n`` calls between two
+    CUDA events, divided by n. A sleep kernel on the stream first lets the
+    host enqueue the whole chain ahead of the card, so the calls run back
+    to back and none waits on the host's enqueue, which one event pair a
+    call would time along with a short kernel."""
+    import torch
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(SLEEP_CYCLES)
+    a.record()
+    for _ in range(n):
+        fn()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / n
+
+
 def db_error(test, ref) -> float:
     err = float((test.double() - ref.double()).norm())
     if err == 0.0:

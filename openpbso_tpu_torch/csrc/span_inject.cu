@@ -23,18 +23,19 @@
 // operations bound it (bench/roofline.py::span_inject).
 //
 // Precision: float32 in, float32 out, FP32-accurate. Both operands are
-// split into two TF32 numbers, x = hi + lo (f by rounding, the table by
-// truncation), and each product is a_lo b_hi + a_hi b_lo + a_hi b_hi. The
-// tensor cores' float32 accumulation truncates, so the products restart
-// from zero every ``restart`` k8 steps and are added to float32 registers
-// with rounding to nearest (one slot), or multiplied by their slot's be_k
-// and added to the injection (more slots); the complex products are
-// be_re t_re - be_im t_im and be_re t_im + be_im t_re in the twin's order.
+// split into two TF32 numbers, x = hi + lo (f by rounding, by truncation in
+// the stacked variant, the table by truncation), and each product is
+// a_lo b_hi + a_hi b_lo + a_hi b_hi. The tensor cores' float32
+// accumulation truncates, so the products restart from zero every
+// ``restart`` k8 steps and are added to float32 registers with rounding
+// to nearest (one slot), or multiplied by their slot's be_k and added to
+// the injection (more slots); the complex products are be_re t_re - be_im
+// t_im and be_re t_im + be_im t_re in the twin's order.
 // Admitted by the measured error against the FP32 twin (<= -110 dB,
 // chip_smoke.py, tests/test_torch_gpu.py). No [O, K, X, M] tensor is
 // formed; no atomics, a fixed reduction order: two runs are bitwise equal.
 //
-// Two designs, chosen by the wrapper from the shape alone
+// Three designs, chosen by the wrapper from the shape alone
 // (ops/span_inject.py::variant_for):
 //
 // wgmma (variant wgmma): the asynchronous pipeline. The table operand is
@@ -65,10 +66,38 @@
 // samples double-buffered through shared memory by cp.async, the table
 // rows fetched in reverse and split in registers, mma.sync m16n8k8, the
 // slots inside the sample stages (a table stage fetched once for every
-// slot). It stays for per-object tables with few chunks (the one-block
-// span's X = 8, hetero short spans), where 128-row wgmma tiles would stay
-// mostly empty, for calls too small to fill the card with them, and for
-// chunks the TMA cannot stride (C not a multiple of 4).
+// slot). It stays for per-object tables with few chunks of one or two
+// slots (hetero short spans; X = 16 rows, so 128-row wgmma tiles would
+// stay mostly empty), for calls too small to fill the card with them, and
+// for chunks the TMA cannot stride (C not a multiple of 4).
+//
+// stacked (variant stacked): per-object tables with few chunks (X <= 8)
+// and many slots, the live stream's one- and four-block spans (X = 8
+// chunks of 64 or 256 samples, K = 17 slots: a full bucket and the AR
+// channel). There the mma design's 16-row tiles hold 8 chunks (half
+// empty) and walk the slots one at a time, each with its own complex
+// epilogue over the tile, and the 4096 blocks wait on latency. Here the
+// GEMM's rows are an object's (slot, chunk) pairs, 8 rows a slot (X <= 8:
+// no span of the session has more chunks of at most 256 samples, X = 16
+// comes at C = 512): 136 rows in nine m16 tiles (94% full) at K = 17,
+// each table tile read once a block for every slot. A lane's accumulator
+// rows are then one chunk of every slot, so the sum over slots, be_k t_k
+// in slot order, is taken in its own registers at the end of each restart
+// interval: no shared memory, no atomics. A block of eight warps (one n8
+// tile of 64 modes each) walks four mode tiles of one object through one
+// double-buffered cp.async stream of 32-sample stages, the slots' be_k
+// fetched into shared memory with each tile's first stage; the tile count
+// is a template (3, 5 or 9), so no branch separates one tile's ldmatrix
+// and split from the last one's products. Bound: at 256 objects, K = 17,
+// X = 8, C = 64 and M = 1024, 27.4 GFLOP as three TF32 products, 0.085 ms
+// at mma.sync's measured 321.7 TFLOP/s (bench/mma_rate.py), against 0.058
+// ms of bytes (bench/roofline.py::span_inject): the tensor cores bound it,
+// and every warp splits the shared f rows itself, two instructions a value
+// by truncation (11% faster than by rounding, -122.5 dB). Measured
+// (bench/span_ab.py, NVIDIA H100 80GB HBM3, 700 W; PERF.md): 0.189-0.195
+// ms at C = 64 against 0.569-0.573 for mma16, 0.705-0.710 at C = 256
+// against 2.19-2.21; with two slots mma16 stays faster (0.092 against
+// 0.102).
 //
 // Plain C interface (loaded with ctypes); the launch goes on the stream
 // passed in, and the first error is returned as a cudaError_t.
@@ -723,12 +752,247 @@ int launch(const float* f, const float* be_re, const float* be_im,
 
 }  // namespace wg
 
+// ---------------------------------------------------------------- stacked
+
+namespace st {
+
+constexpr int kTiles = 9;   // m16 tiles of (slot, chunk) rows: 144 rows
+using T = Tile<1, kTiles>;  // eight warps along 64 modes, one n8 tile each
+constexpr int kChunks = 8;   // most chunks an object: the rows of a slot
+constexpr int kSlots = 16 * kTiles / kChunks;   // slots a group: 18
+constexpr int kTilesPerBlock = 4;   // mode tiles a block walks in turn
+
+struct Args : ::Args {
+  int restart;   // sample stages between restarts of the products
+  int per_obj;   // blocks an object (kTilesPerBlock mode tiles each)
+};
+
+// the f row of this thread's copies for slot group g: row r of the tile
+// is slot g kSlots + r / kChunks, chunk r % kChunks (-1 past K or X)
+template <int kVec>
+__device__ __forceinline__ void f_rows(const Args& a, int o, int g,
+                                       int (&off)[FCopies<T::kBM, kVec>::kN]) {
+  using F = FCopies<T::kBM, kVec>;
+#pragma unroll
+  for (int i = 0; i < F::kN; ++i) {
+    const int r = (threadIdx.x + i * kThreads) / F::kRow;
+    const int k = g * kSlots + r / kChunks, x = r % kChunks;
+    off[i] = k < a.K && x < a.X ? (o * a.K + k) * a.X + x : -1;
+  }
+}
+
+// be_k of slot group g at modes m0 .. m0+kBN-1 into be [2][kSlots][kBN]
+// (re, im; zero past K and M)
+template <int kVec>
+__device__ __forceinline__ void load_be(const Args& a, float* be, int o,
+                                        int g, int m0) {
+  constexpr int kRow = kBN / kVec;
+  for (int v = threadIdx.x; v < 2 * kSlots * kRow; v += kThreads) {
+    const int part = v / (kSlots * kRow);
+    const int rem = v - part * kSlots * kRow;
+    const int kl = rem / kRow, m = (rem - kl * kRow) * kVec;
+    const int k = g * kSlots + kl;
+    const float* src = part ? a.be_im : a.be_re;
+    const bool ok = k < a.K && m0 + m < a.M;
+    copy_async<4 * kVec>(
+        be + (part * kSlots + kl) * kBN + m,
+        ok ? src + ((long long)o * a.K + k) * a.M + m0 + m : src,
+        ok ? 4 * kVec : 0);
+  }
+}
+
+// one stage's products of the first kT tiles added to pre (re) and pim
+// (im): no branch between the tiles, so each tile's ldmatrix and split run
+// ahead of the previous tile's products. f is split by truncation too, as
+// every warp splits every tile's rows (two instructions a value, not four)
+template <int kT>
+__device__ __forceinline__ void products(float (&pre)[kT][4],
+                                         float (&pim)[kT][4],
+                                         const float* fs, const float* bs,
+                                         int wn, int lane) {
+  const int gid = lane >> 2, tig = lane & 3;
+  const uint32_t a_addr = smem_addr(
+      fs + ((lane & 7) + 8 * ((lane >> 3) & 1)) * kLdA + 4 * (lane >> 4));
+  const float* bre = bs + tig * kLdB + wn * 8 + gid;
+  const float* bim = bre + kBK * kLdB;
+#pragma unroll
+  for (int kk = 0; kk < kBK / 8; ++kk) {
+    const int at = kk * 8 * kLdB;
+    uint32_t rh0, rl0, rh1, rl1, ih0, il0, ih1, il1;
+    split_trunc(__float_as_uint(bre[at]), rh0, rl0);
+    split_trunc(__float_as_uint(bre[at + 4 * kLdB]), rh1, rl1);
+    split_trunc(__float_as_uint(bim[at]), ih0, il0);
+    split_trunc(__float_as_uint(bim[at + 4 * kLdB]), ih1, il1);
+#pragma unroll
+    for (int mt = 0; mt < kT; ++mt) {
+      const AFrag af = load_a<false>(a_addr + 4 * (mt * 16 * kLdA + kk * 8));
+      mma3<false>(pre[mt], af, rh0, rh1, rl0, rl1);
+      mma3<false>(pim[mt], af, ih0, ih1, il0, il1);
+    }
+  }
+}
+
+// Per-object tables with few chunks (X <= 8) and many slots: the GEMM's
+// rows are the (slot, chunk) pairs of an object, 8 rows a slot (X padded
+// to 8), so a lane's accumulator rows are chunk gid of every slot in its
+// tiles (slot 2 mt + h in tile mt), and the sum over slots is taken in
+// its own registers: inj += be_k t_k over the tiles, in slot order, at the
+// end of each restart interval. A block walks kTilesPerBlock mode tiles of
+// one object through one double-buffered stream of stages (mode tile,
+// slot group, 32 samples), the slots' be_k of each (tile, group) fetched
+// with its first stage, so the next tile's loads run under this one's
+// products and epilogue. kT: the m16 tiles a slot group fills at most
+// (the rest of the 144 rows stay zero and are not multiplied).
+template <int kVec, int kT>
+__global__ void __launch_bounds__(kThreads, 2)
+    span_inject_tc_stacked(const Args a) {
+  constexpr int kBe = 2 * kSlots * kBN;       // floats of one be buffer
+  extern __shared__ __align__(16) float smem[];   // 2 stages, 2 be
+  float* be_s = smem + 2 * T::kStage;
+  const int o = blockIdx.x / a.per_obj;
+  const int t0 = blockIdx.x % a.per_obj * kTilesPerBlock;
+  const int n_tiles = min(kTilesPerBlock, a.m_tiles - t0);
+  const long long og = (long long)o * a.tbl_stride;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int gid = lane >> 2, tig = lane & 3;
+  const int groups = (a.K + kSlots - 1) / kSlots;
+  const int per = (a.C + kBK - 1) / kBK;   // sample stages a group
+  const int per_tile = groups * per;
+  const int stages = n_tiles * per_tile;
+
+  float pre[kT][4], pim[kT][4];
+  float inj_re[2] = {0.f, 0.f}, inj_im[2] = {0.f, 0.f};   // [column]
+
+  int f_off[FCopies<T::kBM, kVec>::kN];
+  // stage s: mode tile t0 + s / per_tile, slot group, samples jb kBK ..
+  auto load = [&](int s) {
+    const int t = s / per_tile, r = s - t * per_tile;
+    const int g = r / per, jb = r - g * per;
+    const int m0 = (t0 + t) * kBN;
+    float* buf = smem + (s & 1) * T::kStage;
+    f_rows<kVec>(a, o, g, f_off);
+    load_f<T::kBM, kVec>(a, buf, f_off, 0, jb * kBK);
+    load_table<kVec>(a, buf + T::kA, og, m0, jb * kBK);
+    // be buffer (t groups + g) & 1: the next (tile, group)'s be lands
+    // while this one's epilogues still read the other
+    if (jb == 0)
+      load_be<kVec>(a, be_s + ((t * groups + g) & 1) * kBe, o, g,
+                            m0);
+    copy_commit();
+  };
+  if (stages > 0) load(0);
+  for (int s = 0; s < stages; ++s) {
+    const int t = s / per_tile, r = s - t * per_tile;
+    const int g = r / per, jb = r - g * per;
+    const int slots = min(kSlots, a.K - g * kSlots);
+    if (s + 1 < stages) {
+      load(s + 1);
+      copy_wait<1>();
+    } else {
+      copy_wait<0>();
+    }
+    __syncthreads();   // this stage has landed
+    if (jb % a.restart == 0) {
+#pragma unroll
+      for (int mt = 0; mt < kT; ++mt)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) pre[mt][i] = pim[mt][i] = 0.f;
+    }
+    const float* buf = smem + (s & 1) * T::kStage;
+    products<kT>(pre, pim, buf, buf + T::kA, warp, lane);
+    if ((jb + 1) % a.restart == 0 || jb + 1 == per) {
+      // inj += be_k t_k: accumulator i of tile mt is row 16 mt + gid
+      // (+8 for i >= 2), mode 2 tig (+1 for odd i) of the warp's n8 tile
+      const float* be =
+          be_s + ((t * groups + g) & 1) * kBe + warp * 8 + 2 * tig;
+#pragma unroll
+      for (int mt = 0; mt < kT; ++mt)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int kl = 2 * mt + h;
+          if (kl >= slots) continue;
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const float br = be[kl * kBN + e];
+            const float bi = be[(kSlots + kl) * kBN + e];
+            const float tr = pre[mt][2 * h + e], ti = pim[mt][2 * h + e];
+            inj_re[e] +=
+                __fsub_rn(__fmul_rn(br, tr), __fmul_rn(bi, ti));
+            inj_im[e] +=
+                __fadd_rn(__fmul_rn(br, ti), __fmul_rn(bi, tr));
+          }
+        }
+    }
+    if (r + 1 == per_tile) {   // the tile's last stage: write, start anew
+      const int m = (t0 + t) * kBN + warp * 8 + 2 * tig;
+      if (gid < a.X && m < a.M) {
+        const long long at = ((long long)o * a.X + gid) * a.M + m;
+        if (a.pairs) {
+          *reinterpret_cast<float2*>(a.inj_re + at) =
+              make_float2(inj_re[0], inj_re[1]);
+          *reinterpret_cast<float2*>(a.inj_im + at) =
+              make_float2(inj_im[0], inj_im[1]);
+        } else {
+          a.inj_re[at] = inj_re[0];
+          a.inj_im[at] = inj_im[0];
+          if (m + 1 < a.M) {
+            a.inj_re[at + 1] = inj_re[1];
+            a.inj_im[at + 1] = inj_im[1];
+          }
+        }
+      }
+#pragma unroll
+      for (int e = 0; e < 2; ++e) inj_re[e] = inj_im[e] = 0.f;
+    }
+    __syncthreads();   // this stage's buffers are free for the next loads
+  }
+}
+
+long long blocks(int O, int M) {
+  const int m_tiles = (M + kBN - 1) / kBN;
+  return (long long)O * ((m_tiles + kTilesPerBlock - 1) / kTilesPerBlock);
+}
+
+template <int kVec, int kT>
+int launch_t(const Args& a, int O, void* stream) {
+  auto kernel = span_inject_tc_stacked<kVec, kT>;
+  const int smem = T::kSmemBytes + 2 * 2 * kSlots * kBN * (int)sizeof(float);
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<(unsigned)blocks(O, a.M), kThreads, smem,
+           static_cast<cudaStream_t>(stream)>>>(a);
+  return (int)cudaGetLastError();
+}
+
+// the fewest of 3, 5 or 9 tiles that hold a slot group's rows
+template <int kVec>
+int launch_x(const Args& a, int O, void* stream) {
+  const int rows = min(a.K, kSlots) * kChunks;
+  if (rows <= 48) return launch_t<kVec, 3>(a, O, stream);
+  if (rows <= 80) return launch_t<kVec, 5>(a, O, stream);
+  return launch_t<kVec, kTiles>(a, O, stream);
+}
+
+// X <= kChunks chunks an object
+int launch(const ::Args& base, int O, int vec4, int restart_k8,
+           void* stream) {
+  if (base.X > kChunks) return (int)cudaErrorInvalidValue;
+  // restart_k8 k8 steps between restarts: kBK / 8 a stage
+  const Args a{base, restart_k8 / (kBK / 8) > 0 ? restart_k8 / (kBK / 8) : 1,
+               (base.m_tiles + kTilesPerBlock - 1) / kTilesPerBlock};
+  return vec4 ? launch_x<4>(a, O, stream) : launch_x<1>(a, O, stream);
+}
+
+}  // namespace st
+
 
 extern "C" {
 
 // The variants (ops/span_inject.py::VARIANTS): 0 mma16, 1 mma64 (the
 // cp.async and mma.sync design at 16 or 64 rows a block), 2 wgmma (the
-// TMA and wgmma pipeline).
+// TMA and wgmma pipeline), 3 stacked (an object's slots stacked as rows,
+// X <= 8 chunks).
 
 // Blocks of one launch of ``variant`` (the wrapper checks them against
 // the grid limit).
@@ -736,6 +1000,7 @@ long long span_inject_blocks(int O, int X, int M, long long tbl_stride,
                              int variant) {
   if (variant == 2)
     return wg::blocks(O, X, M, tbl_stride == 0, wg::Cfg::kBM);
+  if (variant == 3) return st::blocks(O, M);
   int rows, groups;
   row_groups(O, X, tbl_stride, rows, groups);
   const int m_tiles = (M + kBN - 1) / kBN;
@@ -748,12 +1013,12 @@ long long span_inject_blocks(int O, int X, int M, long long tbl_stride,
 // lo_im [Og, M, C], the reversed K-major table and the lo planes of its
 // split (read by the wgmma variants only); inj_re, inj_im [O, X, M].
 // float32, contiguous; O, X, C, M >= 1, K >= 1, O X below 2^31. vec4 != 0
-// takes 16-byte copies in the mma variants (4 | C, 4 | M, f and the tables
-// 16-byte aligned); pairs != 0 float2 stores (2 | M, the outputs 8-byte
-// aligned). The wgmma variants need 4 | C, f and the planes 16-byte
-// aligned (the TMA), and restart_k8, the k8 steps between restarts of
-// their products (a multiple of 4). Returns the first cudaError_t (0 =
-// success).
+// takes 16-byte copies in the mma and stacked variants (4 | C, 4 | M, f
+// and the tables 16-byte aligned); pairs != 0 float2 stores (2 | M, the
+// outputs 8-byte aligned). The wgmma variants need 4 | C, f and the planes
+// 16-byte aligned (the TMA); the stacked variant X <= 8. restart_k8: the
+// k8 steps between restarts of the wgmma and stacked variants' products (a
+// multiple of 4). Returns the first cudaError_t (0 = success).
 int span_inject(const float* f, const float* be_re, const float* be_im,
                 const float* b_re, const float* b_im, const float* bt_re,
                 const float* bt_im, const float* lo_re, const float* lo_im,
@@ -771,6 +1036,7 @@ int span_inject(const float* f, const float* be_re, const float* be_im,
   const int bm = small ? Tile<1, 1>::kBM : Tile<2, 2>::kBM;
   const Args a{f, be_re, be_im, b_re, b_im, tbl_stride, inj_re, inj_im,
                K, X, C, M, rows, (rows + bm - 1) / bm, m_tiles, pairs};
+  if (variant == 3) return st::launch(a, O, vec4, restart_k8, stream);
   const long long blocks = span_inject_blocks(O, X, M, tbl_stride, variant);
   if (small)
     return vec4 ? launch<1, 1, 4>(a, blocks, stream)

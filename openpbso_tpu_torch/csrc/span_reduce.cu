@@ -37,7 +37,7 @@
 // tests/test_torch_gpu.py). No atomics, a fixed reduction order: two runs
 // are bitwise equal.
 //
-// Two designs, chosen by the wrapper from the shape alone
+// Four designs, chosen by the wrapper from the shape alone
 // (ops/span_reduce.py::variant_for):
 //
 // wgmma (variant wgmma): the asynchronous pipeline. One block takes 128
@@ -85,12 +85,37 @@
 // through shared memory by cp.async, the weights formed and split into
 // planes in shared memory, the table split in registers by truncation,
 // mma.sync m16n8k8. It stays for the shapes whose few rows a table would
-// leave a 128-row wgmma tile mostly empty (per-object g of many slots,
-// short hom): those read their whole per-object table once and bytes
-// bound them, so the table's own split in registers reads half the bytes
-// of a lo plane; for calls too small to fill the card with 128-row tiles
-// (a shared table's g); and for modes the TMA cannot stride (M not a
-// multiple of 4).
+// leave a 128-row wgmma tile mostly empty on long chunks (per-object hom
+// and g of many slots at C = 512): those read their whole per-object
+// table once and bytes bound them, so the table's own split in registers
+// reads half the bytes of a lo plane; for calls too small to fill the card
+// with 128-row tiles (a shared table's g); and for modes the TMA cannot
+// stride (M not a multiple of 4).
+//
+// split (variant split): per-object tables of 5 to 32 rows an object on
+// short chunks, the live stream's one- and four-block spans (g: 17 rows,
+// a full bucket and the AR channel; hom: 8 chunks; C = 64 and 256). The
+// mma design gave them two 16-row tiles for 17 rows (the table read
+// twice) and 128-column tiles half empty at C = 64. Here the product is
+// transposed, out^T[c, n] = sum_m B[off+c, m] w[n, m]: the table's rows
+// are A (64 columns, four m16 tiles, a block), all of an object's rows
+// are B (n8 tiles), so the table is read once. Its rows, v's and t's
+// stream through a four-stage cp.async ring of 32 modes each, every
+// thread's copies of a stage found once (their address arithmetic on each
+// stage's path had held it to 55% of the bytes' rate); each stage's
+// weights are formed once, in the twin's order, and split into one of two
+// buffers a stage ahead of the products, one barrier a stage. Each warp
+// takes one column tile and one depth half, the depth permuted inside a
+// step of 16 modes so a lane's 16-byte shared loads are its fragments;
+// the halves are summed in a fixed order. Bytes bound it: 0.051 ms at 256
+// objects, 17 rows, C = 64, M = 1024 (bench/roofline.py::span_reduce).
+// Measured (bench/span_ab.py, NVIDIA H100 80GB HBM3, 700 W; PERF.md): g
+// 0.067 ms at C = 64 against 0.136 for mma16, 0.231-0.239 at C = 256
+// against 0.277-0.280; hom (8 rows) 0.058 against 0.073 and 0.196
+// against 0.203. Tried and dropped (PERF.md): the table's rows loaded
+// into registers by each warp, 16 warps splitting the modes (0.091,
+// 0.320); each warp forming its own weights (0.111); whole-object blocks
+// of 256 columns at C = 256 (0.341).
 //
 // Plain C interface (loaded with ctypes); the launch goes on the stream
 // passed in, and the first error is returned as a cudaError_t.
@@ -837,13 +862,348 @@ int launch(const float* t_re, const float* t_im, const float* v_re,
 
 }  // namespace fp32
 
+// ------------------------------------------------------------------ split
+
+namespace sp {
+
+constexpr int kWarps = 8;
+constexpr int kThreads = 32 * kWarps;
+constexpr int kMT = 4;         // m16 tiles of columns a block
+constexpr int kBC = 16 * kMT;  // columns a block
+constexpr int kSM = 32;        // modes a stage: a step of 16 a depth half
+constexpr int kStages = 4;
+constexpr int kRestart = 4;    // stages between restarts (16 k8 steps)
+constexpr int kLdR = 16 + 4;   // the reduction's rows
+constexpr int kMaxRows = 32;
+
+struct Args {
+  const float *t_re, *t_im;   // [O, L, M]; t_im null: real rows
+  const float *v_re, *v_im;   // [O, R, M]
+  const float *b_re, *b_im;   // [Og, C+1, M]
+  long long tbl_stride;       // floats between objects' tables (0: shared)
+  const float* add;           // [O, L, R, C] or null
+  float* out;                 // [O, L, R, C]
+  int L, R, C, M, off, c_tiles;
+  int stage;                  // floats a stage
+};
+
+// rows of kSM floats (a stage's table, v and t rows; the weight planes):
+// the 16-byte chunk c of row r sits at chunk c ^ 4 (r & 1), so the eight
+// lanes of a phase, rows gid and gid + 1 at one chunk, read both halves'
+// banks
+__device__ __forceinline__ int swz(int row, int col) {
+  return row * kSM + (col ^ ((row & 1) << 4));
+}
+
+// a stage's rows: the table's kBC rows (re, then im), v's R rows (re,
+// im), t's L rows (re, and im for complex rows)
+__device__ __forceinline__ int stage_rows(const Args& a) {
+  return 2 * kBC + 2 * a.R + (a.t_im != nullptr ? 2 : 1) * a.L;
+}
+
+// the first mode of a stage's row ``row`` in device memory
+__device__ __forceinline__ const float* row_source(const Args& a,
+                                                   const float* tb_re,
+                                                   const float* tb_im, int o,
+                                                   int c0, int row) {
+  int r = row;
+  if (r < 2 * kBC) {   // the table: column c0 + r (mod kBC), clamped
+    const bool im = r >= kBC;
+    r -= im ? kBC : 0;
+    return (im ? tb_im : tb_re) +
+           (long long)(a.off + min(c0 + r, a.C - 1)) * a.M;
+  }
+  if ((r -= 2 * kBC) < 2 * a.R) {
+    const bool im = r >= a.R;
+    r -= im ? a.R : 0;
+    return (im ? a.v_im : a.v_re) + ((long long)o * a.R + r) * a.M;
+  }
+  r -= 2 * a.R;
+  const bool im = r >= a.L;
+  r -= im ? a.L : 0;
+  return (im ? a.t_im : a.t_re) + ((long long)o * a.L + r) * a.M;
+}
+
+// A thread's 16-byte copies of every stage (4 | M, rows 16-byte aligned),
+// their sources and places found once: a stage's copies are then an add
+// and a compare each (at most 2 kBC + 66 rows of kSM / 4 copies)
+constexpr int kPlan = (2 * kBC + 2 * (kMaxRows + 1)) * (kSM / 4) / kThreads + 1;
+
+struct CopyPlan {
+  const float* src[kPlan];
+  int dst[kPlan];
+  int lim[kPlan];   // the copy holds modes while m0 < lim
+
+  __device__ __forceinline__ CopyPlan(const Args& a, const float* tb_re,
+                                      const float* tb_im, int o, int c0) {
+    const int n = stage_rows(a) * (kSM / 4);
+#pragma unroll
+    for (int i = 0; i < kPlan; ++i) {
+      const int v = threadIdx.x + i * kThreads;
+      const int row = v / (kSM / 4), col = 4 * (v - row * (kSM / 4));
+      src[i] = v < n ? row_source(a, tb_re, tb_im, o, c0, row) + col : a.b_re;
+      dst[i] = swz(row, col);
+      lim[i] = v < n ? a.M - col : -1;   // -1: no copy
+    }
+  }
+
+  __device__ __forceinline__ void load(float* st, int s) const {
+    const int m0 = s * kSM;
+#pragma unroll
+    for (int i = 0; i < kPlan; ++i) {
+      if (lim[i] < 0) break;
+      const bool ok = m0 < lim[i];
+      copy_async<16>(st + dst[i], ok ? src[i] + m0 : src[i], ok ? 16 : 0);
+    }
+  }
+};
+
+// stage s's rows, modes s kSM .. s kSM + kSM - 1 (zero past M), one float
+// a copy (rows not on 16 bytes, or M not a multiple of 4)
+__device__ __forceinline__ void load_stage_scalar(const Args& a, float* st,
+                                                  const float* tb_re,
+                                                  const float* tb_im, int o,
+                                                  int c0, int s) {
+  const int m0 = s * kSM;
+  const int rows = stage_rows(a);
+  for (int v = threadIdx.x; v < rows * kSM; v += kThreads) {
+    const int row = v / kSM, col = v - row * kSM;
+    const float* src = row_source(a, tb_re, tb_im, o, c0, row);
+    const bool ok = m0 + col < a.M;
+    copy_async<4>(st + swz(row, col), ok ? src + m0 + col : src, ok ? 4 : 0);
+  }
+}
+
+// the weights of a stage's kNT 8 rows n = (l, r) (zero past L R) from its
+// v and t rows, in the twin's rounding order, split by rounding into the
+// planes w [4][kNT 8][kSM]: w_pr hi, lo, w_pi hi, lo
+template <int kNT>
+__device__ __forceinline__ void form_weights(const Args& a, const float* st,
+                                             float* w) {
+  const float* vs = st + 2 * kBC * kSM;
+  const float* ts = vs + 2 * a.R * kSM;
+  const bool cplx = a.t_im != nullptr;
+  const int rows = a.L * a.R;
+  for (int v = threadIdx.x; v < kNT * 8 * (kSM / 4); v += kThreads) {
+    const int n = v / (kSM / 4), col = 4 * (v - n * (kSM / 4));
+    float pr[4] = {0.f, 0.f, 0.f, 0.f}, pi[4] = {0.f, 0.f, 0.f, 0.f};
+    if (n < rows) {
+      const int l = n / a.R, r = n - l * a.R;
+      const float4 vr = *reinterpret_cast<const float4*>(vs + swz(r, col));
+      const float4 vi =
+          *reinterpret_cast<const float4*>(vs + swz(a.R + r, col));
+      const float4 tr = *reinterpret_cast<const float4*>(ts + swz(l, col));
+      const float4 ti =
+          cplx ? *reinterpret_cast<const float4*>(ts + swz(a.L + l, col))
+               : make_float4(0.f, 0.f, 0.f, 0.f);
+      weights(tr.x, ti.x, vr.x, vi.x, cplx, pr[0], pi[0]);
+      weights(tr.y, ti.y, vr.y, vi.y, cplx, pr[1], pi[1]);
+      weights(tr.z, ti.z, vr.z, vi.z, cplx, pr[2], pi[2]);
+      weights(tr.w, ti.w, vr.w, vi.w, cplx, pr[3], pi[3]);
+    }
+    float4 hi, lo;
+    split4(pr, hi, lo);
+    *reinterpret_cast<float4*>(w + swz(n, col)) = hi;
+    *reinterpret_cast<float4*>(w + kNT * 8 * kSM + swz(n, col)) = lo;
+    split4(pi, hi, lo);
+    *reinterpret_cast<float4*>(w + 2 * kNT * 8 * kSM + swz(n, col)) = hi;
+    *reinterpret_cast<float4*>(w + 3 * kNT * 8 * kSM + swz(n, col)) = lo;
+  }
+}
+
+// The transposed product out^T[c, n] = sum_m B[off+c, m] w[n, m] of one
+// object: the table's rows are A (kBC columns c a block), the L R weight
+// rows w are B (kNT n8 tiles), the modes the depth. The table, v and t
+// rows of kSM modes at a time stream through a ring of kStages stages by
+// cp.async (the table read once, at the card's bandwidth); the block forms
+// each stage's weights once, split, into one of two weight buffers a
+// stage ahead of the products, so one barrier a stage suffices. Warp w
+// takes the m16 tile w % kMT of the columns and the depth half w / kMT of
+// each stage; the table is split by truncation in registers. The depth is
+// permuted inside a step of 16 modes: lane (gid, tig) holds modes 4 tig ..
+// 4 tig + 3 of its rows, k8 step s reads the pair 2s, 2s + 1 as logical k
+// = tig and tig + 4, in A and B alike, so each lane's 16-byte shared
+// loads are its fragments. The two depth halves are summed through shared
+// memory in a fixed order.
+template <int kNT, int kVec>
+__global__ void __launch_bounds__(kThreads, 2)
+    span_reduce_split(const Args a) {
+  constexpr int kW = 4 * kNT * 8 * kSM;   // floats of a weight buffer
+  extern __shared__ __align__(16) float smem[];   // ring, then 2 weights
+  float* wbuf = smem + kStages * a.stage;
+  const int ct = blockIdx.x % a.c_tiles, o = blockIdx.x / a.c_tiles;
+  const int c0 = ct * kBC;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int gid = lane >> 2, tig = lane & 3;
+  const int mt = warp % kMT, hh = warp / kMT;
+  const int rows = a.L * a.R;
+  const float* tb_re = a.b_re + (long long)o * a.tbl_stride;
+  const float* tb_im = a.b_im + (long long)o * a.tbl_stride;
+  const int col = 16 * hh + 4 * tig;   // this lane's modes in a stage
+
+  float acc[kNT][4], part[kNT][4];
+#pragma unroll
+  for (int j = 0; j < kNT; ++j)
+#pragma unroll
+    for (int q = 0; q < 4; ++q) acc[j][q] = part[j][q] = 0.f;
+
+  // the ring: stages s + 1 and s + 2 in flight while stage s is
+  // multiplied; its slot's last reader is stage s - 1
+  const int stages = (a.M + kSM - 1) / kSM;
+  const CopyPlan plan(a, tb_re, tb_im, o, c0);
+  auto load_stage = [&](int s) {
+    float* st = smem + s % kStages * a.stage;
+    if (kVec == 4)
+      plan.load(st, s);
+    else
+      load_stage_scalar(a, st, tb_re, tb_im, o, c0, s);
+  };
+#pragma unroll
+  for (int s = 0; s < kStages - 1; ++s) {
+    if (s < stages) load_stage(s);
+    copy_commit();
+  }
+  copy_wait<kStages - 2>();
+  __syncthreads();   // stage 0 has landed
+  form_weights<kNT>(a, smem, wbuf);
+  for (int s = 0; s < stages; ++s) {
+    copy_wait<kStages - 3>();
+    // stage s + 1 has landed, stage s's weights are formed, and every
+    // warp is done with stage s - 1
+    __syncthreads();
+    if (s + kStages - 1 < stages)   // into the slot stage s - 1 left
+      load_stage(s + kStages - 1);
+    copy_commit();
+    const float* st = smem + s % kStages * a.stage;
+    const float* w = wbuf + (s & 1) * kW;
+    if (s % kRestart == 0) {
+#pragma unroll
+      for (int j = 0; j < kNT; ++j)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) part[j][q] = 0.f;
+    }
+    // A: the table rows 16 mt + gid (+8), re and im, split by truncation;
+    // register q: row gid (+8 for odd q), element 2k (+1 for q >= 2)
+    AFrag are[2], aim[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = 16 * mt + 8 * h + gid;
+      const float4 re = *reinterpret_cast<const float4*>(st + swz(row, col));
+      const float4 im =
+          *reinterpret_cast<const float4*>(st + swz(kBC + row, col));
+      split_trunc(__float_as_uint(re.x), are[0].hi[h], are[0].lo[h]);
+      split_trunc(__float_as_uint(re.y), are[0].hi[h + 2], are[0].lo[h + 2]);
+      split_trunc(__float_as_uint(re.z), are[1].hi[h], are[1].lo[h]);
+      split_trunc(__float_as_uint(re.w), are[1].hi[h + 2], are[1].lo[h + 2]);
+      split_trunc(__float_as_uint(im.x), aim[0].hi[h], aim[0].lo[h]);
+      split_trunc(__float_as_uint(im.y), aim[0].hi[h + 2], aim[0].lo[h + 2]);
+      split_trunc(__float_as_uint(im.z), aim[1].hi[h], aim[1].lo[h]);
+      split_trunc(__float_as_uint(im.w), aim[1].hi[h + 2], aim[1].lo[h + 2]);
+    }
+#pragma unroll
+    for (int j = 0; j < kNT; ++j) {
+      if (8 * j >= rows) break;
+      // B: the split weights of row 8 j + gid at the four modes; k8 step
+      // k takes elements 2k, 2k + 1 (b0, b1)
+      const int at = swz(8 * j + gid, col);
+      const uint4 prh = *reinterpret_cast<const uint4*>(w + at);
+      const uint4 prl = *reinterpret_cast<const uint4*>(w + kNT * 8 * kSM + at);
+      const uint4 pih =
+          *reinterpret_cast<const uint4*>(w + 2 * kNT * 8 * kSM + at);
+      const uint4 pil =
+          *reinterpret_cast<const uint4*>(w + 3 * kNT * 8 * kSM + at);
+      mma3<false>(part[j], are[0], prh.x, prh.y, prl.x, prl.y);
+      mma3<false>(part[j], aim[0], pih.x, pih.y, pil.x, pil.y);
+      mma3<false>(part[j], are[1], prh.z, prh.w, prl.z, prl.w);
+      mma3<false>(part[j], aim[1], pih.z, pih.w, pil.z, pil.w);
+    }
+    if ((s + 1) % kRestart == 0 || s + 1 == stages) {
+#pragma unroll
+      for (int j = 0; j < kNT; ++j)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) acc[j][q] += part[j][q];
+    }
+    if (s + 1 < stages)   // the next stage's weights, into the other buffer
+      form_weights<kNT>(a, smem + (s + 1) % kStages * a.stage,
+                        wbuf + ((s + 1) & 1) * kW);
+  }
+  copy_wait<0>();
+  __syncthreads();   // every warp is done with the ring
+
+  // accumulator q of tile j: column 16 mt + gid (+8 for q >= 2), row 8 j
+  // + 2 tig (+1 for odd q); the two depth halves summed in order
+  float* red = smem;   // [kWarps][kNT 8][kLdR], over the ring
+  float* mine = red + warp * (kNT * 8) * kLdR;
+#pragma unroll
+  for (int j = 0; j < kNT; ++j)
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+      mine[(8 * j + 2 * tig + (q & 1)) * kLdR + gid + 8 * (q >> 1)] =
+          acc[j][q];
+  __syncthreads();
+  for (int v = threadIdx.x; v < rows * kBC; v += kThreads) {
+    const int n = v / kBC, c = v - n * kBC;
+    if (c0 + c >= a.C) continue;
+    const int at_red = n * kLdR + c % 16;
+    const float sum = red[(c / 16) * (kNT * 8) * kLdR + at_red] +
+                      red[(c / 16 + kMT) * (kNT * 8) * kLdR + at_red];
+    const int l = n / a.R, r = n - l * a.R;
+    const long long at =
+        (((long long)o * a.L + l) * a.R + r) * a.C + c0 + c;
+    a.out[at] = a.add ? sum + a.add[at] : sum;
+  }
+}
+
+long long blocks(int O, int C) {
+  return (long long)O * ((C + kBC - 1) / kBC);
+}
+
+template <int kNT, int kVec>
+int launch_rows(const Args& a, int O, void* stream) {
+  auto kernel = span_reduce_split<kNT, kVec>;
+  const int smem =
+      (kStages * a.stage + 2 * 4 * kNT * 8 * kSM) * (int)sizeof(float);
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<(unsigned)((long long)O * a.c_tiles), kThreads, smem,
+           static_cast<cudaStream_t>(stream)>>>(a);
+  return (int)cudaGetLastError();
+}
+
+template <int kVec>
+int launch_vec(const Args& a, int O, void* stream) {
+  const int rows = a.L * a.R;
+  if (rows <= 8) return launch_rows<1, kVec>(a, O, stream);
+  if (rows <= 16) return launch_rows<2, kVec>(a, O, stream);
+  if (rows <= 24) return launch_rows<3, kVec>(a, O, stream);
+  return launch_rows<4, kVec>(a, O, stream);
+}
+
+// L R <= kMaxRows rows an object
+int launch(const float* t_re, const float* t_im, const float* v_re,
+           const float* v_im, const float* b_re, const float* b_im,
+           long long tbl_stride, const float* add, float* out, int O, int L,
+           int R, int C, int M, int off, int vec4, void* stream) {
+  if (L * R > kMaxRows) return (int)cudaErrorInvalidValue;
+  const int cplx = t_im != nullptr;
+  // a stage's rows (table, v, t) of kSM floats; the reduction fits in it
+  const int stage = (2 * kBC + 2 * R + (1 + cplx) * L) * kSM;
+  const Args a{t_re, t_im, v_re, v_im, b_re, b_im, tbl_stride, add, out,
+               L, R, C, M, off, (C + kBC - 1) / kBC, stage};
+  return vec4 ? launch_vec<4>(a, O, stream) : launch_vec<1>(a, O, stream);
+}
+
+}  // namespace sp
+
 
 extern "C" {
 
 // The variants (ops/span_reduce.py::VARIANTS): 0 mma16, 1 mma64 (the
 // cp.async and mma.sync design at 16 or 64 rows a block), 2 wgmma (the
 // TMA and wgmma pipeline), 3 fp32 (the streaming design on the
-// CUDA cores, L R <= 4 rows an object).
+// CUDA cores, L R <= 4 rows an object), 4 split (an object's table rows
+// as A, the modes split over warps; L R <= 32 rows an object).
 
 // Blocks of one launch of ``variant`` (the wrapper checks them against
 // the grid limit).
@@ -852,6 +1212,7 @@ long long span_reduce_blocks(int O, int L, int R, int C,
   if (variant == 2)
     return wg::blocks(O, L, R, C, tbl_stride == 0, wg::Cfg::kBM);
   if (variant == 3) return fp32::blocks(O, C);
+  if (variant == 4) return sp::blocks(O, C);
   long long rows, groups;
   row_groups(O, L, R, tbl_stride, rows, groups);
   const int c_tiles = (C + kBN - 1) / kBN;
@@ -883,6 +1244,9 @@ int span_reduce(const float* t_re, const float* t_im, const float* v_re,
   if (variant == 3)
     return fp32::launch(t_re, t_im, v_re, v_im, b_re, b_im, tbl_stride == 0,
                        add, out, O, L, R, C, M, off, stream);
+  if (variant == 4)
+    return sp::launch(t_re, t_im, v_re, v_im, b_re, b_im, tbl_stride, add,
+                      out, O, L, R, C, M, off, vec4, stream);
   long long rows, groups;
   row_groups(O, L, R, tbl_stride, rows, groups);
   const int c_tiles = (C + kBN - 1) / kBN;

@@ -15,13 +15,17 @@ runs the product on the tensor cores with the 3xTF32 split (held to <=
 flipping f, and forms the complex sum over slots in registers, so no
 [O, K, X, M] tensor exists; on CPU tensors it runs
 ``span_inject_reference``, the stage code it replaces, which is also what
-the kernel is held against on the card. The kernel source holds two
-designs; ``variant_for`` picks one from the shape alone: the TMA and wgmma
-pipeline (reading the table's reversed K-major planes,
+the kernel is held against on the card. The kernel source holds three
+designs; ``variant_for`` picks one from the shape alone: for per-object
+tables of few short chunks and more than one slot (the live stream's
+one- and four-block spans), ``stacked``, an object's (slot, chunk) pairs
+stacked as the GEMM's rows and the sum over slots taken in registers; the
+TMA and wgmma pipeline (reading the table's reversed K-major planes,
 ops/span.py::span_planes) where a table's chunks fill 128-row tiles that
-fill the card, the cp.async and mma.sync one (the table read in reverse
-and split in registers) where they do not, which is where the per-object
-table's bytes bound the call.
+fill the card; and the cp.async and mma.sync one (the table read in
+reverse and split in registers) for the rest: per-object tables of one
+slot, where the table's bytes bound the call, and calls too small to fill
+the card.
 """
 from __future__ import annotations
 
@@ -30,7 +34,15 @@ import torch
 MAX_BLOCKS = 2**31 - 1    # one grid dimension
 SMS = 132                 # streaming multiprocessors of an H100
 # the kernel's variants, by their number in its C interface
-VARIANTS = ("mma16", "mma64", "wgmma")
+VARIANTS = ("mma16", "mma64", "wgmma", "stacked")
+# the stacked variant's most chunks an object (X): the session's spans
+# of chunks of at most 256 samples have 8 (ops/span.py::choose_radix)
+STACKED_CHUNKS = 8
+# the shapes variant_for sends to the stacked variant, by A/B against
+# mma16 (PERF.md): per-object tables of at least this many slots and
+# chunks of at most this many samples (the one- and four-block spans: X =
+# 8, K = 17, C = 64 and 256; at K = 2 mma16 measured faster)
+STACKED_ROUTE = (3, 256)
 # k8 steps between restarts of the wgmma variant's products (the tensor
 # cores' float32 accumulation truncates): at C = 512, 16 measured -119.7
 # dB against the twin, 32 -115.6 and 64 (no restart) -111.3, at the -110
@@ -42,14 +54,19 @@ LAUNCHES = 0
 
 
 def variant_for(o: int, k: int, x: int, c: int, m: int, og: int) -> str:
-    """The kernel variant for a call's shape, by the shape alone: wgmma
-    where one table's injection rows (all O X of a shared table, X of a
-    per-object one) fill 128-row tiles, those tiles fill the card and the
-    TMA can stride the chunk rows (4 | C); else mma (per-object tables
-    with few chunks, bound by reading them, and calls too small to fill
+    """The kernel variant for a call's shape, by the shape alone: stacked
+    for per-object tables of few short chunks and three slots or more
+    (STACKED_ROUTE: the one- and four-block spans); wgmma where one
+    table's injection rows (all O X of a shared table, X of a per-object
+    one) fill 128-row tiles, those tiles fill the card and the TMA can
+    stride the chunk rows (4 | C); else mma (per-object tables with few
+    chunks and slots, bound by reading them, and calls too small to fill
     the card), 64 rows a block where that fills two blocks on each SM,
     else 16."""
     shared = og == 1
+    least, most_c = STACKED_ROUTE
+    if not shared and k >= least and x <= STACKED_CHUNKS and c <= most_c:
+        return "stacked"
     rows = x * (o if shared else 1)
     groups = 1 if shared else o
     m_tiles = -(-m // 64)
@@ -88,7 +105,6 @@ def span_inject_reference(f_k, be_re, be_im, b_re, b_im):
 
 def _launch(f_k, be_re, be_im, b_re, b_im, planes, variant):
     from . import _build
-    lib = _build.load()
     o, k, n = f_k.shape
     c = b_re.shape[1] - 1
     x, m = n // c, b_re.shape[-1]
@@ -99,6 +115,10 @@ def _launch(f_k, be_re, be_im, b_re, b_im, planes, variant):
     if min(o, x, c, m) < 1:
         raise ValueError(f"span_inject needs O, X, C, M >= 1; got f "
                          f"{tuple(f_k.shape)}, table {tuple(b_re.shape)}")
+    if variant == "stacked" and x > STACKED_CHUNKS:
+        raise ValueError(f"span_inject (stacked) takes at most "
+                         f"{STACKED_CHUNKS} chunks an object; got X = {x}")
+    lib = _build.load()
     stride = 0 if b_re.shape[0] == 1 else (c + 1) * m
     index = VARIANTS.index(variant)
     if o * x > MAX_BLOCKS or lib.span_inject_blocks(
@@ -126,9 +146,12 @@ def _launch(f_k, be_re, be_im, b_re, b_im, planes, variant):
                              "planes 16-byte aligned (the TMA's bases)")
     inj_re = torch.empty((o, x, m), dtype=torch.float32, device=f_k.device)
     inj_im = torch.empty_like(inj_re)
-    # 16-byte copies need rows of whole float4s on 16-byte boundaries
+    # 16-byte copies need rows of whole float4s on 16-byte boundaries (the
+    # stacked variant copies be too)
+    copied = [f_k, b_re, b_im] + ([be_re, be_im] if variant == "stacked"
+                                  else [])
     vec4 = int(c % 4 == 0 and m % 4 == 0
-               and all(t.data_ptr() % 16 == 0 for t in (f_k, b_re, b_im)))
+               and all(t.data_ptr() % 16 == 0 for t in copied))
     pairs = int(m % 2 == 0)
     with _build.device_guard(f_k):
         err = lib.span_inject(

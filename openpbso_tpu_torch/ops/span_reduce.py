@@ -17,12 +17,15 @@ forms the weights in registers, runs the product on the tensor cores with
 the 3xTF32 split (held to <= -110 dB against the twin) and adds ``add`` as
 it writes ``out``; on CPU tensors it runs ``span_reduce_reference``, the
 stage code it replaces, which is also what the kernel is held against on
-the card. The kernel source holds three designs; ``variant_for`` picks
+the card. The kernel source holds four designs; ``variant_for`` picks
 one from the shape alone: the TMA and wgmma pipeline (reading the table's
 lo planes, ops/span.py::span_planes) where a table's rows fill 128-row
-tiles that fill the card, a float32 stream on the CUDA cores for
-per-object g of a few rows, bound by reading its tables, and the cp.async
-and mma.sync one (the table split in registers) for the rest.
+tiles that fill the card; for per-object g, bound by reading its tables,
+a float32 stream on the CUDA cores at a few rows and ``split`` at a full
+slot bucket on short chunks (the live stream's one- and four-block spans:
+the table's rows as the GEMM's A, read once, the modes split over
+warps); and the cp.async and mma.sync one (the table split in registers)
+for the rest.
 """
 from __future__ import annotations
 
@@ -33,8 +36,15 @@ from .integrator import _complex_weights
 MAX_BLOCKS = 2**31 - 1    # one grid dimension
 SMS = 132                 # streaming multiprocessors of an H100
 # the kernel's variants, by their number in its C interface
-VARIANTS = ("mma16", "mma64", "wgmma", "fp32")
+VARIANTS = ("mma16", "mma64", "wgmma", "fp32", "split")
 FP32_ROWS = 4             # the fp32 variant's most rows an object (L R)
+SPLIT_ROWS = 32           # the split variant's most rows an object (L R)
+# the shapes variant_for sends to the split variant, by A/B against mma16
+# and fp32 (PERF.md): per-object tables of at least this many rows
+# an object (fewer take fp32) and at most this many columns (the one- and
+# four-block spans' g, 17 rows, and hom, 8; C = 64 and 256; at C = 512
+# mma16 measured level)
+SPLIT_ROUTE = (FP32_ROWS + 1, 256)
 # k8 steps between restarts of the wgmma variant's products (the tensor
 # cores' float32 accumulation truncates): at hom's depth 2M = 2048, 16
 # measured -118.7 dB against the twin, 32 -114.0 and 64 -108.5, past the
@@ -49,11 +59,12 @@ def variant_for(o: int, nl: int, r: int, c: int, m: int, og: int) -> str:
     """The kernel variant for a call's shape, by the shape alone: wgmma
     where one table's rows (all O R of a shared table, R of a per-object
     one) fill 128-row tiles, those tiles fill the card and the TMA can
-    stride the modes (4 | M); fp32 for per-object tables of at most
-    FP32_ROWS rows an object (g of a few slots), which stream their tables
-    and are bound by those bytes; else mma (calls too small to fill the
-    card), 64 rows a block where that fills two blocks on each SM, else
-    16."""
+    stride the modes (4 | M); for per-object tables, which stream their
+    tables and are bound by those bytes, fp32 at most FP32_ROWS rows an
+    object (g of a few slots) and split within SPLIT_ROUTE (g of a full
+    bucket and hom on short chunks); else mma (calls too small to fill
+    the card), 64 rows a block where that fills two blocks on each SM,
+    else 16."""
     shared = og == 1
     rows = r * (o if shared else 1)
     groups = 1 if shared else o
@@ -63,6 +74,9 @@ def variant_for(o: int, nl: int, r: int, c: int, m: int, og: int) -> str:
         return "wgmma"
     if not shared and m % 4 == 0 and nl * r <= FP32_ROWS:
         return "fp32"
+    if (not shared and SPLIT_ROUTE[0] <= nl * r <= SPLIT_ROWS
+            and c <= SPLIT_ROUTE[1]):
+        return "split"
     rows *= nl
     big = -(-rows // 64)
     return ("mma16" if rows <= 32 or big * groups * c_tiles < 2 * SMS
@@ -97,7 +111,6 @@ def span_reduce_reference(t_re, t_im, v_re, v_im, b_re, b_im, off: int,
 def _launch(t_re, t_im, v_re, v_im, b_re, b_im, off, add, planes,
             variant):
     from . import _build
-    lib = _build.load()
     o, r, m = v_re.shape
     nl = t_re.shape[1]
     c = b_re.shape[1] - 1
@@ -111,6 +124,10 @@ def _launch(t_re, t_im, v_re, v_im, b_re, b_im, off, add, planes,
         raise ValueError(f"span_reduce needs O, L, R, C, M >= 1; got t "
                          f"{tuple(t_re.shape)}, v {tuple(v_re.shape)}, "
                          f"table {tuple(b_re.shape)}")
+    if variant == "split" and nl * r > SPLIT_ROWS:
+        raise ValueError(f"span_reduce (split) takes L R <= {SPLIT_ROWS} "
+                         f"rows an object; got L R = {nl * r}")
+    lib = _build.load()
     stride = 0 if b_re.shape[0] == 1 else (c + 1) * m
     index = VARIANTS.index(variant)
     if o * nl * r > MAX_BLOCKS or lib.span_reduce_blocks(

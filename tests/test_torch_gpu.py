@@ -399,6 +399,11 @@ INJECT_CASES = [
     ("per-object K=3", 3, True, 3, 150, 192, 128),
     ("shared K=17", 12, False, 17, 8, 64, 128),
     ("per-object C=512", 2, True, 1, 130, 512, 384),
+    ("per-object X=8 K=5 C=64", 6, True, 5, 8, 64, 256),
+    ("per-object X=8 K=17 C=64", 5, True, 17, 8, 64, 256),
+    ("per-object X=8 K=5 C=256", 3, True, 5, 8, 256, 384),
+    ("per-object X=8 K=17 C=256", 3, True, 17, 8, 256, 128),
+    ("per-object X=5 K=20 C=64", 2, True, 20, 5, 64, 128),
 ]
 REDUCE_CASES = [
     ("shared hom", 40, False, 1, 20, 64, 256, False, 1, True),
@@ -407,6 +412,14 @@ REDUCE_CASES = [
     ("shared g, L = 2", 200, False, 2, 1, 192, 128, True, 0, False),
     ("per-object hom, L = 2", 2, True, 2, 150, 512, 384, True, 1, True),
     ("per-object g, K = 17", 9, True, 1, 17, 64, 128, False, 0, False),
+    ("per-object g, K = 5", 6, True, 1, 5, 64, 256, False, 0, False),
+    ("per-object g, K = 17, C = 256", 3, True, 1, 17, 256, 384, False, 0,
+     False),
+    ("per-object g, L = 2, K = 5", 4, True, 2, 5, 64, 256, True, 0, False),
+    ("per-object g, L = 2, K = 13, C = 256", 3, True, 2, 13, 256, 128, True,
+     0, False),
+    ("per-object hom, X = 8, C = 256", 3, True, 1, 8, 256, 256, False, 1,
+     True),
 ]
 
 
@@ -423,6 +436,10 @@ def test_every_span_inject_variant_matches_twin(cuda, case, variant):
     be = [_randn(rng, o, k, m, device=cuda) for _ in range(2)]
     args = (f, *be, tables.b_re, tables.b_im)
     planes = span_planes(tables.b_re, tables.b_im)
+    if variant == "stacked" and x > k3.STACKED_CHUNKS:
+        with pytest.raises(ValueError, match="stacked"):
+            k3._launch(*args, planes, variant)
+        return
     got = k3._launch(*args, planes, variant)
     again = k3._launch(*args, planes, variant)
     _assert_kernel_matches_twin(got, again, k3.span_inject_reference(*args),
@@ -442,8 +459,9 @@ def test_every_span_reduce_variant_matches_twin(cuda, case, variant):
     extra = _randn(rng, o, nl, r, c, device=cuda) if add else None
     args = (t_re, t_im, *v, tables.b_re, tables.b_im, off, extra)
     planes = span_planes(tables.b_re, tables.b_im)
-    if variant == "fp32" and nl * r > k4.FP32_ROWS:
-        with pytest.raises(ValueError, match="fp32"):
+    most = {"fp32": k4.FP32_ROWS, "split": k4.SPLIT_ROWS}
+    if nl * r > most.get(variant, nl * r):
+        with pytest.raises(ValueError, match=variant):
             k4._launch(*args, planes, variant)
         return
     got = k4._launch(*args, planes, variant)
@@ -509,6 +527,37 @@ def test_span_kernels_take_unaligned_rows(cuda):
     _assert_kernel_matches_twin([k4.span_reduce(*args)],
                                 [k4.span_reduce(*args)],
                                 [k4.span_reduce_reference(*args)], db=-110)
+
+
+def test_short_variants_take_misaligned_views(cuda):
+    """The stacked and split variants (the one-block span's shape, K = 17
+    slots, X = 8 chunks of 64) on views 4 bytes off a 16-byte boundary
+    (every input, or be alone) and on modes of no whole float4 take their
+    4-byte loads: <= -110 dB against the twin, bitwise repeatable; the
+    wrappers route them there."""
+    rng = np.random.default_rng(17)
+    for m_modes, f_off in ((None, 1), (42, 1), (None, 0)):
+        tables = _span_table(3, 40, 64, False, cuda, m_modes)
+        m = tables.b_re.shape[-1]
+
+        def view(*shape, off=1):
+            n = int(np.prod(shape))
+            return _randn(rng, n + off, device=cuda)[off:].reshape(shape)
+        f = view(3, 17, 8 * 64, off=f_off)
+        be = [view(3, 17, m) for _ in range(2)]
+        assert be[0].data_ptr() % 16 != 0
+        assert k3.variant_for(3, 17, 8, 64, m, 3) == "stacked"
+        args = (f, *be, tables.b_re, tables.b_im)
+        _assert_kernel_matches_twin(k3.span_inject(*args),
+                                    k3.span_inject(*args),
+                                    k3.span_inject_reference(*args), db=-110)
+        t = [view(3, 1, m) for _ in range(2)]
+        assert k4.variant_for(3, 1, 17, 64, m, 3) == "split"
+        args = (*t, *be, tables.b_re, tables.b_im, 0)
+        _assert_kernel_matches_twin([k4.span_reduce(*args)],
+                                    [k4.span_reduce(*args)],
+                                    [k4.span_reduce_reference(*args)],
+                                    db=-110)
 
 
 def test_spans_go_through_the_contraction_kernels(cuda):

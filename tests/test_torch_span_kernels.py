@@ -218,6 +218,24 @@ def test_span_inject_refuses_no_slots():
         k3.span_inject(*_inject_args(k=0))
 
 
+@pytest.mark.parametrize("x", [k3.STACKED_CHUNKS + 1, 40])
+def test_stacked_variant_refuses_many_chunks(x):
+    """The stacked variant takes at most STACKED_CHUNKS chunks an object;
+    more raise before anything is built, whatever the device."""
+    args = _inject_args(k=17, x=x, shared=False)
+    with pytest.raises(ValueError, match="stacked"):
+        k3._launch(*args, None, "stacked")
+
+
+@pytest.mark.parametrize("nl,r", [(1, k4.SPLIT_ROWS + 1), (2, 17)])
+def test_split_variant_refuses_many_rows(nl, r):
+    """The split variant takes at most SPLIT_ROWS rows (L R) an object;
+    more raise before anything is built, whatever the device."""
+    args = _reduce_args(nl=nl, r=r, shared=False)
+    with pytest.raises(ValueError, match="split"):
+        k4._launch(*args, None, None, "split")
+
+
 # ------------------------------------------ the span through the wrappers
 
 
@@ -394,7 +412,7 @@ def test_wrappers_take_planes_on_the_cpu(shared):
     ((256, 1, 1, 512, 1024, 256), "fp32"),        # g, per-object
     ((256, 2, 2, 512, 1024, 256), "fp32"),        # g, per-object, L R = 4
     ((256, 1, 16, 512, 1024, 256), "mma16"),      # hom, hetero nb=16
-    ((256, 1, 17, 64, 1024, 256), "mma16"),       # g, one-block span
+    ((256, 1, 17, 64, 1024, 256), "split"),       # g, one-block span
     ((256, 1, 5, 512, 1024, 256), "mma16"),       # g, per-object, 5 slots
     ((256, 1, 1, 512, 42, 256), "mma16"),         # g, 42 modes: no float4
     ((256, 2, 16, 512, 1024, 256), "mma16"),      # 8c's L = 2 hom
@@ -402,6 +420,12 @@ def test_wrappers_take_planes_on_the_cpu(shared):
     ((64, 1, 1, 512, 512, 64), "fp32"),           # a (2, 2) shard's g
     ((256, 1, 512, 512, 42, 1), "mma64"),         # 42 modes: no TMA
     ((3, 1, 40, 64, 128, 1), "mma16"),            # too few tiles
+    ((256, 1, 17, 256, 1024, 256), "split"),      # g, four-block span
+    ((256, 1, 8, 64, 1024, 256), "split"),        # hom, one-block span
+    ((256, 1, 8, 256, 1024, 256), "split"),       # hom, four-block span
+    ((256, 1, 5, 64, 1024, 256), "split"),        # g, 5 slots, C = 64
+    ((256, 1, 16, 64, 1024, 256), "split"),       # g, bucket, no AR
+    ((256, 2, 17, 64, 1024, 256), "mma16"),       # L R = 34 rows
 ])
 def test_span_reduce_variant_by_shape(args, want):
     """The variant follows from the shape alone: the same answer every
@@ -418,11 +442,19 @@ def test_span_reduce_variant_by_shape(args, want):
     ((256, 1, 16, 512, 1024, 1), "wgmma"),        # shared nb=16
     ((256, 1, 16, 512, 1024, 256), "mma16"),      # hetero nb=16
     ((256, 4, 16, 512, 1024, 256), "mma16"),      # hetero nb=16, K = 4
-    ((256, 17, 8, 64, 1024, 256), "mma16"),       # one-block, full bucket
+    ((256, 17, 8, 64, 1024, 256), "stacked"),     # one-block, full bucket
     ((64, 1, 16, 512, 512, 64), "mma16"),         # a (2, 2) shard
     ((256, 1, 512, 7, 1024, 1), "mma64"),         # odd chunk: no TMA
     ((70, 3, 20, 64, 1024, 1), "wgmma"),          # 128-row tiles cross objects
     ((70, 3, 20, 64, 384, 1), "mma16"),           # too few tiles
+    ((256, 17, 8, 256, 1024, 256), "stacked"),    # four-block, full bucket
+    ((256, 3, 8, 64, 1024, 256), "stacked"),      # one-block, 3 slots
+    ((256, 2, 8, 64, 1024, 256), "mma16"),        # one-block, 2 slots
+    ((256, 17, 8, 512, 1024, 256), "mma16"),      # X = 8 chunks of 512
+    ((256, 17, 9, 64, 1024, 256), "mma16"),       # 9 chunks
+    ((256, 16, 8, 64, 1024, 256), "stacked"),     # one-block, bucket, no AR
+    ((256, 17, 8, 128, 1024, 256), "stacked"),    # two-block span
+    ((256, 17, 8, 64, 1024, 1), "wgmma"),         # a shared table
 ])
 def test_span_inject_variant_by_shape(args, want):
     assert k3.variant_for(*args) == want
