@@ -486,15 +486,18 @@ def enqueue_ms(fn, runs=TIMED_RUNS) -> float:
     return 1e3 * host / runs
 
 
-def toeplitz_case(label, g, f, timed=True) -> dict:
+def toeplitz_case(label, g, f, timed=True, want=None) -> dict:
     """toeplitz_conv against its twin on (g, f): <= TOEPLITZ_DB and two
-    runs bitwise equal; timed beside the twin and one cuDNN conv1d call
-    that computes the same function (the yardstick, never called by the
-    port), with its achieved TFLOP/s and its shares of the FP32 (CUDA
-    cores) and 3xTF32 (tensor cores) bounds of bench/roofline.py."""
+    runs bitwise equal, the variant variant_for picks ``want`` when given;
+    timed beside the twin and one cuDNN conv1d call that computes the same
+    function (the yardstick, never called by the port), at the short
+    chunks also one torch.matmul on the materialised Toeplitz operand,
+    with its achieved TFLOP/s and its shares of the FP32 (CUDA cores) and
+    3xTF32 (tensor cores) bounds of bench/roofline.py."""
     import torch
     from openpbso_tpu_torch.bench import roofline
-    from openpbso_tpu_torch.bench.toeplitz_ab import chain_ms, conv1d_call
+    from openpbso_tpu_torch.bench.toeplitz_ab import (
+        chain_ms, conv1d_call, toeplitz_matmul_call)
     from openpbso_tpu_torch.ops import toeplitz_conv as k2
     got, again, plain = (fn(g, f) for fn in (
         k2.toeplitz_conv, k2.toeplitz_conv, k2.toeplitz_conv_reference))
@@ -504,9 +507,13 @@ def toeplitz_case(label, g, f, timed=True) -> dict:
     check(bool(torch.isfinite(got).all()),
           f"toeplitz_conv ({label}) not finite")
     o, nl, k, c = g.shape
-    out = {"case": label, "O": o, "L": nl, "K": k, "X": f.shape[2], "C": c,
+    x = f.shape[2]
+    out = {"case": label, "O": o, "L": nl, "K": k, "X": x, "C": c,
+           "variant": k2.variant_for(o, nl, k, x, c),
            "db_vs_plain": db_error(got.cpu().numpy(), plain.cpu().numpy()),
            "max_abs_err": float((got - plain).abs().max())}
+    check(want is None or out["variant"] == want,
+          f"toeplitz_conv ({label}) routed to {out['variant']}, not {want}")
     check(out["db_vs_plain"] <= TOEPLITZ_DB,
           f"toeplitz_conv ({label}) {out['db_vs_plain']} dB vs plain")
     del got, again, plain
@@ -518,6 +525,11 @@ def toeplitz_case(label, g, f, timed=True) -> dict:
                                 "toeplitz_conv", bound, out["ms"]))
         out["plain_ms"] = time_ms(lambda: k2.toeplitz_conv_reference(g, f))
         out["library_ms"] = chain_ms(call)
+        if x <= 16 and c <= 256:   # the operand of the short chunks fits
+            matmul = toeplitz_matmul_call(g, f)
+            out["matmul_ms"] = chain_ms(matmul)
+            del matmul
+            torch.cuda.empty_cache()
         out.update(bound_ms=bound["bound_ms"], bound_by=bound["bound_by"],
                    tflops=bound["flops"] / out["ms"] / 1e9,
                    share_fp32_bound=bound["fp32_ms"] / out["ms"],
@@ -4767,12 +4779,13 @@ def phase_span_forms_all(scene, hetero, modes, shared, shared_lam, baby,
     return launches
 
 
-def contraction_inputs(tables, k, nl, cplx, seed) -> dict:
+def contraction_inputs(tables, k, nl, cplx, seed,
+                       kinds=("span_inject", "g", "hom")) -> dict:
     """A busy span's contraction inputs at ``tables``' shape, made on the
     card from a seed: span_inject's (f [O, K, N], b e_k) and span_reduce's
     for g (transfer rows, complex with ``cplx``, against b e_k) and for hom
     (against chunk starts [O, X, M], the conv added), each with the
-    tables' planes, as the span module passes them."""
+    tables' planes, as the span module passes them; those of ``kinds``."""
     import torch
     dev = tables.b_re.device
     c, x, m = tables.chunk, tables.n_chunks, tables.b_re.shape[-1]
@@ -4784,10 +4797,12 @@ def contraction_inputs(tables, k, nl, cplx, seed) -> dict:
     t = (randn(O, nl, m), randn(O, nl, m) if cplx else None)
     tbl = (tables.b_re, tables.b_im)
     check(tables.planes is not None, "13: tables without their planes")
-    return {"span_inject": (randn(O, k, x * c), *be, *tbl, tables.planes),
-            "g": (*t, *be, *tbl, 0, None, tables.planes),
-            "hom": (*t, randn(O, x, m), randn(O, x, m), *tbl, 1,
-                    randn(O, nl, x, c), tables.planes)}
+    make = {"span_inject": lambda: (randn(O, k, x * c), *be, *tbl,
+                                    tables.planes),
+            "g": lambda: (*t, *be, *tbl, 0, None, tables.planes),
+            "hom": lambda: (*t, randn(O, x, m), randn(O, x, m), *tbl, 1,
+                            randn(O, nl, x, c), tables.planes)}
+    return {kind: make[kind]() for kind in kinds}
 
 
 def library_call(kind, args):
@@ -4818,9 +4833,10 @@ def library_call(kind, args):
     return lambda: torch.bmm(w, tbl)
 
 
-def contraction_timing(label, kind, args) -> dict:
-    """Phase 13 for one kernel call: contraction_case, then CUDA-event
-    and profiler times beside the twin's, the SGEMM pair's and the bound
+def contraction_timing(label, kind, args, want=None) -> dict:
+    """Phase 13 for one kernel call: contraction_case, the variant
+    variant_for picks (``want`` when given), then CUDA-event and profiler
+    times beside the twin's, the SGEMM pair's and the bound
     (bench/roofline.py)."""
     import torch
     from openpbso_tpu_torch.bench import roofline
@@ -4843,6 +4859,8 @@ def contraction_timing(label, kind, args) -> dict:
         bound = roofline.span_reduce(o, og, nl, v_re.shape[1], c, m,
                                      add is not None, cplx=t_im is not None)
         out["variant"] = k4.variant_for(o, nl, v_re.shape[1], c, m, og)
+    check(want is None or out["variant"] == want,
+          f"{name} ({label}, {kind}) routed to {out['variant']}, not {want}")
     out["ms"] = chain_ms(lambda: kernel(*args))
     out["enqueue_ms"] = enqueue_ms(lambda: kernel(*args))
     out.update(device_times(lambda: kernel(*args), name, bound, out["ms"]))
@@ -4906,23 +4924,41 @@ def dispatch_ab(label, bank, tables, n_blocks, seed) -> dict:
     return out
 
 
-def phase_contractions(hetero, lam64, shared, shared_tables, hetero_tables,
-                       seed) -> dict:
+# phase 13's grid of g on a shared table: chunks C (the one- and
+# four-block spans' 64 and 256, nb=512's 512), slots K (one; a full bucket
+# and the AR channel) and listener rows L (one real; a binaural ITD
+# scene's two complex rows), each with the variant variant_for must pick
+# at 256 x 1024 (ops/span_reduce.py::CLUSTER_ROUTE)
+SHARED_G_WANT = {
+    (64, 1, 1): "cluster", (64, 1, 2): "cluster", (64, 17, 1): "mma16",
+    (64, 17, 2): "mma16", (256, 1, 1): "cluster", (256, 1, 2): "cluster",
+    (256, 17, 1): "mma16", (256, 17, 2): "wgmma", (512, 1, 1): "cluster",
+    (512, 1, 2): "cluster", (512, 17, 1): "wgmma", (512, 17, 2): "wgmma"}
+# the live stream's spans (lookahead 1 and 4, X = 8 chunks of a
+# per-object table): blocks, chunk, slots (17: a full bucket and the AR
+# channel, the rattle streams'; 1: the plain streams') and toeplitz_conv's
+# variant
+SHORT_SPANS = {"one-block span, full bucket + AR": (1, 64, 17, "short"),
+               "four-block span, full bucket + AR": (4, 256, 17, "short"),
+               "one-block span, plain (K = 1)": (1, 64, 1, "v3"),
+               "four-block span, plain (K = 1)": (4, 256, 1, "v3")}
+
+
+def phase_contractions(hetero, lam64, shared, shared_lam, shared_tables,
+                       hetero_tables, seed) -> dict:
     """Phase 13: span_inject and span_reduce (g, hom) at the main path's
     shapes, each against its twin and timed beside it, its SGEMM pair and
-    its bound; toeplitz_conv at the one- and four-block spans' shapes
-    beside conv1d and its bound; the whole busy dispatch twin-composed
-    against the kernels, A B B A; 7d's engine p50/p99 as they stand.
-    Returns the shared nb=512 entries (the kernels line's)."""
+    its bound; g on a shared table at SHARED_G_WANT's grid; toeplitz_conv
+    at the one- and four-block spans' shapes (SHORT_SPANS) beside conv1d,
+    a matmul on the materialised operand and its bound; each case's
+    variant gated; the whole busy dispatch twin-composed against the
+    kernels, A B B A; 7d's engine p50/p99 as they stand. Returns the
+    shared nb=512 entries (the kernels line's)."""
     import torch
     render_span = session_span_tables(hetero, lam64, SPAN_DISPATCH)
     built = {"shared nb=512": (shared_tables, 1, 1, False),
              "hetero nb=1024": (hetero_tables, 1, 1, False),
              "hetero nb=16 (5b's spans)": (render_span, 1, 1, False)}
-    # the live stream's spans (lookahead 1 and 4): X = 8 chunks of a
-    # per-object table, a full slot bucket and the AR channel (K = 17)
-    short = {"one-block span, full bucket + AR": (1, 64),
-             "four-block span, full bucket + AR": (4, 256)}
     out = {}
     for i, (label, (tables, k, nl, cplx)) in enumerate(built.items()):
         inputs = contraction_inputs(tables, k, nl, cplx, seed + i)
@@ -4930,18 +4966,36 @@ def phase_contractions(hetero, lam64, shared, shared_tables, hetero_tables,
                       for kind, args in inputs.items()}
         del inputs
         torch.cuda.empty_cache()
+    seed += len(built)
+    shared_chunks = {c: session_span_tables(shared, shared_lam, n_blocks)
+                     for c, n_blocks in ((64, 1), (256, 4))}
+    shared_chunks[512] = shared_tables
+    for i, ((c, k, nl), want) in enumerate(SHARED_G_WANT.items()):
+        tables = shared_chunks[c]
+        check(tables.shared and tables.chunk == c,
+              f"13: shared tables of C={tables.chunk}, not {c}")
+        label = (f"shared g, C = {c}, K = {k}, L = {nl}"
+                 + (" complex" if nl == 2 else ""))
+        args = contraction_inputs(tables, k, nl, nl == 2, seed + i,
+                                  kinds=("g",))["g"]
+        out[label] = {"g": contraction_timing(label, "g", args, want)}
+        del args
+        torch.cuda.empty_cache()
+    del shared_chunks
+    seed += len(SHARED_G_WANT)
     gen = torch.Generator(device=hetero.device).manual_seed(seed)
-    for i, (label, (n_blocks, chunk)) in enumerate(short.items()):
+    for i, (label, (n_blocks, chunk, k, conv)) in enumerate(
+            SHORT_SPANS.items()):
         tables = session_span_tables(hetero, lam64, n_blocks)
         check((tables.chunk, tables.n_chunks) == (chunk, 8),
               f"13: {label} tables C={tables.chunk} X={tables.n_chunks}")
-        inputs = contraction_inputs(tables, 17, 1, False,
-                                    seed + len(built) + i)
+        inputs = contraction_inputs(tables, k, 1, False, seed + i)
         out[label] = {kind: contraction_timing(label, kind, args)
                       for kind, args in inputs.items()}
         g, f = (torch.randn(shape, generator=gen, device=hetero.device)
-                for shape in ((O, 1, 17, chunk), (O, 17, 8, chunk)))
-        out[label]["toeplitz_conv"] = toeplitz_case(f"13 {label}", g, f)
+                for shape in ((O, 1, k, chunk), (O, k, 8, chunk)))
+        out[label]["toeplitz_conv"] = toeplitz_case(f"13 {label}", g, f,
+                                                    want=conv)
         del inputs, tables, g, f
         torch.cuda.empty_cache()
     for label, inputs in CONTRACTION_INPUTS.items():
@@ -5093,8 +5147,9 @@ def run_phases(args, model_pool, model_futures) -> int:
     torch.cuda.empty_cache()
     with phase_clock("13", seconds):
         contractions = phase_contractions(
-            hetero, modes[0], shared, span_cases["shared"].pop("tables"),
-            hetero_tables, args.seed + 13)
+            hetero, modes[0], shared, shared_lam,
+            span_cases["shared"].pop("tables"), hetero_tables,
+            args.seed + 13)
     del hetero_tables
 
     head = span_cases[SPAN_CASES[0][0]]

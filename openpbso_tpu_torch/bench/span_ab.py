@@ -13,7 +13,8 @@ that exports ``span_reduce`` at the reduction shapes. A source that takes
 the table's planes (this checkout's: ops/span.py::span_planes, made once a
 shape, and the variant that ops/span_*.py::variant_for picks for the
 shape, or the one named after ``@``: mma16, mma64, wgmma, stacked for
-span_inject, mma16, mma64, wgmma, fp32, split for span_reduce) is called
+span_inject, mma16, mma64, wgmma, fp32, split, cluster for span_reduce;
+a source without the named variant refuses it) is called
 with them; an older one (the first version's, which reads the table
 alone) without. At each shape every variant is held against the plain
 twin (dB, bitwise repeatable; a variant that cannot take the shape is
@@ -59,17 +60,24 @@ INJECT_SHAPES = (
     ("span_1block_k3", 256, 256, 3, 8, 64),
     ("span_1block_k5", 256, 256, 5, 8, 64),
 )
-REDUCE_SHAPES = (   # name, O, Og, L, R, C, add
-    ("hom_shared_nb512", 256, 1, 1, 512, 512, True),
-    ("hom_hetero_nb1024", 256, 256, 1, 1024, 512, True),
-    ("hom_hetero_nb16", 256, 256, 1, 16, 512, True),
-    ("g_shared", 256, 1, 1, 1, 512, False),
-    ("g_hetero", 256, 256, 1, 1, 512, False),
-    ("g_1block_k17", 256, 256, 1, 17, 64, False),
-    ("g_4block_k17", 256, 256, 1, 17, 256, False),
-    ("hom_1block", 256, 256, 1, 8, 64, True),
-    ("hom_4block", 256, 256, 1, 8, 256, True),
-    ("g_1block_k5", 256, 256, 1, 5, 64, False),
+REDUCE_SHAPES = (   # name, O, Og, L, R, C, add, complex rows
+    ("hom_shared_nb512", 256, 1, 1, 512, 512, True, False),
+    ("hom_hetero_nb1024", 256, 256, 1, 1024, 512, True, False),
+    ("hom_hetero_nb16", 256, 256, 1, 16, 512, True, False),
+    ("g_hetero", 256, 256, 1, 1, 512, False, False),
+    ("g_1block_k17", 256, 256, 1, 17, 64, False, False),
+    ("g_4block_k17", 256, 256, 1, 17, 256, False, False),
+    ("hom_1block", 256, 256, 1, 8, 64, True, False),
+    ("hom_4block", 256, 256, 1, 8, 256, True, False),
+    ("g_1block_k5", 256, 256, 1, 5, 64, False, False),
+    # a shared table's g at the span's chunks (C), slots (K) and listener
+    # rows (L = 1 real, L = 2 complex: the binaural ITD scene's), and its
+    # hom at the short spans' X chunks
+) + tuple((f"gs_c{c}_k{k}_l{nl}", 256, 1, nl, k, c, False, nl == 2)
+          for c in (64, 256, 512) for k in (1, 17) for nl in (1, 2)) + (
+    ("homs_c64_x8", 256, 1, 1, 8, 64, True, False),
+    ("homs_c256_x8", 256, 1, 1, 8, 256, True, False),
+    ("homs_c512_x16_l2", 256, 1, 2, 16, 512, True, True),
 )
 M = 1024
 
@@ -147,8 +155,10 @@ class Variant:
             c = b_re.shape[1] - 1
             out = torch.empty((o, nl, r, c), device=v_re.device)
             stride = 0 if b_re.shape[0] == 1 else b_re.stride(0)
-            head = [t_re.data_ptr(), None, v_re.data_ptr(), v_im.data_ptr(),
-                    b_re.data_ptr(), b_im.data_ptr()]
+            head = [t_re.data_ptr(),
+                    None if t_im is None else t_im.data_ptr(),
+                    v_re.data_ptr(), v_im.data_ptr(), b_re.data_ptr(),
+                    b_im.data_ptr()]
             tail = [o, nl, r, c, M, off, 1, 1]
             if self.planes:
                 v = self.forced or k4.variant_for(o, nl, r, c, M,
@@ -173,7 +183,7 @@ def inputs(kind, shape, seed, dev):
     if kind == "inject":
         _, o, og, k, x, c = shape
     else:
-        _, o, og, k, x, c, add = shape
+        _, o, og, k, x, c, add, cplx = shape
     mag = torch.rand((og, 1, M), generator=gen, device=dev) * 0.01 + 0.99
     ang = torch.rand((og, 1, M), generator=gen, device=dev) * 3.0
     pw = torch.arange(c + 1, device=dev, dtype=torch.float32)[None, :, None]
@@ -182,8 +192,9 @@ def inputs(kind, shape, seed, dev):
     if kind == "inject":
         return (randn(o, k, x * c), randn(o, k, M), randn(o, k, M), b_re,
                 b_im)
-    return (randn(o, k, M), None, randn(o, x, M), randn(o, x, M), b_re,
-            b_im, 1 if add else 0, randn(o, k, x, c) if add else None)
+    return (randn(o, k, M), randn(o, k, M) if cplx else None, randn(o, x, M),
+            randn(o, x, M), b_re, b_im, 1 if add else 0,
+            randn(o, k, x, c) if add else None)
 
 
 def run_shape(kind, shape, variants, seed, dev, restarts=()) -> dict:
@@ -200,8 +211,8 @@ def run_shape(kind, shape, variants, seed, dev, restarts=()) -> dict:
         variant = k3.variant_for(o, k, x, c, M, og)
     else:
         twin = [k4.span_reduce_reference(*args)]
-        _, o, og, nl, r, c, add = shape
-        bound = roofline.span_reduce(o, og, nl, r, c, M, add)
+        _, o, og, nl, r, c, add, cplx = shape
+        bound = roofline.span_reduce(o, og, nl, r, c, M, add, cplx=cplx)
         variant = k4.variant_for(o, nl, r, c, M, og)
     planes = span_planes(*(args[3:5] if kind == "inject" else args[4:6]))
     res = {"shape": shape[0], "kernel": kind, "bound_ms": bound["bound_ms"],

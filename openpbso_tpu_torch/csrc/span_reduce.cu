@@ -37,7 +37,7 @@
 // tests/test_torch_gpu.py). No atomics, a fixed reduction order: two runs
 // are bitwise equal.
 //
-// Four designs, chosen by the wrapper from the shape alone
+// Five designs, chosen by the wrapper from the shape alone
 // (ops/span_reduce.py::variant_for):
 //
 // wgmma (variant wgmma): the asynchronous pipeline. One block takes 128
@@ -117,9 +117,35 @@
 // 0.320); each warp forming its own weights (0.111); whole-object blocks
 // of 256 columns at C = 256 (0.341).
 //
+// cluster (variant cluster): g on a shared table of one slot (256-512
+// rows of 2M = 2048 depth against 64-512 columns): its output is too
+// small to fill the card with tiles that each walk all the modes (mma16
+// gave 64 blocks of 32 serial stages). Here the modes split over a
+// thread-block cluster: every block takes one output tile (16, 32 or 64
+// rows by 128 columns) and its share of the stages; twelve producer
+// warps stream the stages' table rows and the tile's v and t rows by
+// cp.async two stages ahead into a four-stage ring and form the split
+// weights in place, eight consumer warps run the mma design's products,
+// full and empty mbarriers between them; the partial tiles are summed in rank
+// order through distributed shared memory (no atomics: two runs are
+// bitwise equal). The cluster is the widest (up to 8) whose clusters all
+// run at once (cudaOccupancyMaxActiveClusters: 15 of 8 blocks fit at one
+// block an SM on the H100), so the launch is one wave. Bound: the 3xTF32
+// operations, 0.0033 ms at 256 objects, C = 512 (14% reached). Measured
+// (bench/span_ab.py, NVIDIA H100 80GB HBM3, 700 W; PERF.md): 0.0236 ms
+// at C = 512, L = 1 against mma16's 0.048 and one PyTorch call's 0.0227;
+// the producers' issue bounds it (four producer warps 0.028, eight
+// 0.024: with four, the consumers waited 0.58 us of each 1.76 us stage
+// of 16 modes; each copy's source found once: 0.018 -> 0.0157 at C =
+// 256, where one PyTorch call takes 0.0167). Tried and dropped: the loop split over a cluster as it
+// was (0.033), a ring of every copy without producer warps (0.044: the
+// copies' issue, ~0.7 us a stage, serial with the products), a producer
+// lead of 3 and a ring of 2 stages at 2 blocks an SM.
+//
 // Plain C interface (loaded with ctypes); the launch goes on the stream
 // passed in, and the first error is returned as a cudaError_t.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -1197,13 +1223,423 @@ int launch(const float* t_re, const float* t_im, const float* v_re,
 }  // namespace sp
 
 
+// ---------------------------------------------------------------- cluster
+
+namespace cl {
+
+namespace cg = cooperative_groups;
+
+constexpr int kMaxCluster = 8;   // the portable cluster size
+constexpr int kWant = 128;       // blocks that fill the card, one an SM
+constexpr int kStages = 4;       // ring stages
+constexpr int kLead = 2;         // stages the copies run ahead of the weights
+constexpr int kProd = 384;       // producer threads (twelve warps)
+constexpr int kBlock = kThreads + kProd;
+constexpr int kLdP = kBN + 4;    // the partial tile's rows (floats)
+constexpr int kMaxDevices = 64;
+
+// a stage of the ring, in floats: the table's rows [2][kBN][kLd] (re,
+// im), then the tile's rows of v_re, v_im, t_re, t_im [4][kBM][kLd],
+// which the producers turn into the weight planes in place (w_pr hi, lo,
+// w_pi hi, lo); then the tile rows' sources
+template <int kWM, int kMT>
+struct Ring {
+  using T = Tile<kWM, kMT>;
+  static constexpr int kTbl = 2 * kBN * T::kLd;
+  static constexpr int kStage = kTbl + 4 * T::kBM * T::kLd;
+  static constexpr int kRows = kStages * kStage;   // [4][kBM] long longs
+  static constexpr int kSmemBytes =
+      kRows * (int)sizeof(float) + 4 * T::kBM * 8 + 16 * kStages;
+  static_assert(T::kBM * kLdP <= kRows, "the partial tile fits");
+};
+
+template <int kWM, int kMT, int kVec>
+__global__ void __launch_bounds__(kBlock, 1)
+    span_reduce_cluster(const Args a);
+
+// one device's largest clusters of 1 .. kMaxCluster blocks of a tile's
+// kernel that run at once, asked of the runtime once
+template <int kWM, int kMT, int kVec>
+int max_clusters(int q) {
+  static int found[kMaxDevices][kMaxCluster + 1] = {};
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev >= kMaxDevices) return 0;
+  if (found[dev][q] == 0) {
+    using R = Ring<kWM, kMT>;
+    auto kernel = span_reduce_cluster<kWM, kMT, kVec>;
+    if (cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             R::kSmemBytes) != cudaSuccess)
+      return 0;
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(q * kWant, 1, 1);
+    cfg.blockDim = dim3(kBlock, 1, 1);
+    cfg.dynamicSmemBytes = R::kSmemBytes;
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = q;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+    int n = 0;
+    if (cudaOccupancyMaxActiveClusters(&n, kernel, &cfg) != cudaSuccess)
+      return 0;
+    found[dev][q] = n > 0 ? n : -1;
+  }
+  return found[dev][q];
+}
+
+// a launch's tile rows (64, 32 or 16: Tile<2, 2>, <2, 1>, <1, 1>) and its
+// cluster size q: the widest tile whose tiles, times the largest cluster,
+// reach kWant blocks; then the largest q whose clusters, one a tile, all
+// run at once (so the launch is one wave), else one block a tile
+struct Plan {
+  int bm, q;
+  long long tiles;   // output tiles: groups x row tiles x column tiles
+  Plan(long long rows, long long groups, int C, int vec4) {
+    const long long c_tiles = (C + kBN - 1) / kBN;
+    auto count = [&](int b) {
+      return groups * ((rows + b - 1) / b) * c_tiles;
+    };
+    bm = count(64) * kMaxCluster >= kWant   ? 64
+         : count(32) * kMaxCluster >= kWant ? 32
+                                            : 16;
+    tiles = count(bm);
+    for (q = kMaxCluster; q > 1; --q)
+      if (tiles <= fits(q, vec4)) break;
+  }
+  int fits(int q, int vec4) const {
+    if (bm == 64)
+      return vec4 ? max_clusters<2, 2, 4>(q) : max_clusters<2, 2, 1>(q);
+    if (bm == 32)
+      return vec4 ? max_clusters<2, 1, 4>(q) : max_clusters<2, 1, 1>(q);
+    return vec4 ? max_clusters<1, 1, 4>(q) : max_clusters<1, 1, 1>(q);
+  }
+};
+
+// A producer thread's 16-byte copies of every stage, their sources and
+// places found once: a stage's copy is then an add and a compare
+template <int kN>
+struct Copies {
+  const float* src[kN];
+  int dst[kN];
+  int lim[kN];   // the copy holds modes while m0 < lim; -1: no copy
+
+  __device__ __forceinline__ void issue(float* st, int m0) const {
+#pragma unroll
+    for (int i = 0; i < kN; ++i) {
+      if (lim[i] < 0) break;
+      const bool ok = m0 < lim[i];
+      copy_async<16>(st + dst[i], ok ? src[i] + m0 : src[i], ok ? 16 : 0);
+    }
+  }
+};
+
+// One block of a cluster of q: one output tile's rank-th share of the
+// modes' stages, warp-specialised. Twelve producer warps stream each stage's
+// table rows and the tile's v and t rows into a ring of kStages stages by
+// cp.async, kLead stages ahead, and, once a stage has landed, turn its v
+// and t rows in place
+// into the four split weight planes (the twin's rounding order), then
+// arrive on the stage's full barrier; eight consumer warps wait on it, run
+// the mma design's products (the table split in registers) and arrive on
+// its empty barrier. No block-wide barrier stands between the copies and
+// the products, so the copies, which the SM's rate from L2 bounds, run
+// under the tensor cores' work. Then the consumers' partial tile goes into
+// shared memory; after a cluster barrier, block rank sums rows rank kBM /
+// q .. of the tile over the cluster's blocks in rank order through
+// distributed shared memory and writes them, adding ``add``.
+template <int kWM, int kMT, int kVec>
+__global__ void __launch_bounds__(kBlock, 1)
+    span_reduce_cluster(const Args a) {
+  using T = Tile<kWM, kMT>;
+  using R = Ring<kWM, kMT>;
+  constexpr int kNT = T::kNT, kBK = T::kBK, kLd = T::kLd;
+  extern __shared__ __align__(16) float smem[];
+  long long* src = reinterpret_cast<long long*>(smem + R::kRows);
+  const uint32_t bars = smem_addr(src + 4 * T::kBM);
+  auto full = [&](int i) { return bars + 8 * i; };
+  auto empty = [&](int i) { return bars + 8 * (kStages + i); };
+  cg::cluster_group cluster = cg::this_cluster();
+  const int q = (int)cluster.num_blocks();
+  const int rank = (int)cluster.block_rank();
+  int bid = blockIdx.x / q;
+  const int ct = bid % a.c_tiles;
+  bid /= a.c_tiles;
+  const int rt = bid % a.r_tiles;
+  const int grp = bid / a.r_tiles;
+  const int r0 = rt * T::kBM, c0 = ct * kBN;   // r0: within the group
+  const int row0 = grp * a.rows + r0;          // flat (o, l, r): < 2^31
+  const long long og = (long long)grp * a.tbl_stride;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const bool cplx = a.t_im != nullptr;
+
+  // this block's stages s0 .. s0+n-1 (none when q exceeds the stages)
+  const int stages = (a.M + kBK - 1) / kBK;
+  const int per = (stages + q - 1) / q;
+  const int s0 = min(stages, rank * per), n = min(stages, s0 + per) - s0;
+
+  // the tile rows' first elements: v_re, v_im, t_re, t_im (-1: past the
+  // group's rows, zero)
+  for (int v = tid; v < 4 * T::kBM; v += kBlock) {
+    const int arr = v / T::kBM, r = v - arr * T::kBM;
+    long long at = -1;
+    if (r0 + r < a.rows) {
+      const int row = row0 + r, lr = a.L * a.R;
+      const int o = row / lr, ol = row - o * lr, l = ol / a.R;
+      at = arr < 2 ? ((long long)o * a.R + (ol - l * a.R)) * a.M
+                   : ((long long)o * a.L + l) * a.M;
+    }
+    src[v] = at;
+  }
+  if (tid == 0) {
+    for (int i = 0; i < kStages; ++i) {
+      hopper::mbar_init(full(i), kProd);
+      hopper::mbar_init(empty(i), kWarps);
+    }
+    hopper::mbar_init_fence();
+  }
+  __syncthreads();
+
+  float acc[kMT][kNT][4];
+#pragma unroll
+  for (int mt = 0; mt < kMT; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < kNT; ++nt)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[mt][nt][i] = 0.f;
+
+  if (tid >= kThreads) {   // the producers
+    const int p = tid - kThreads;
+    constexpr int kPerRow = kBK / kVec;
+    // 16-byte copies: each one's source and place found once (measured
+    // 13-16% faster at C <= 256 than finding them every stage)
+    constexpr int kTblN = (2 * kBN * kPerRow + kProd - 1) / kProd;
+    constexpr int kRawN = (4 * T::kBM * kPerRow + kProd - 1) / kProd;
+    Copies<kVec == 4 ? kTblN : 1> tbl_copies;
+    Copies<kVec == 4 ? kRawN : 1> raw_copies;
+    if constexpr (kVec == 4) {
+#pragma unroll
+      for (int i = 0; i < kTblN; ++i) {
+        const int v = p + i * kProd;
+        const int part = v / (kBN * kPerRow);
+        const int rem = v - part * kBN * kPerRow;
+        const int c = rem / kPerRow, j = (rem - c * kPerRow) * 4;
+        const bool in = v < 2 * kBN * kPerRow, ok = in && c0 + c < a.C;
+        tbl_copies.src[i] = ok ? (part ? a.b_im : a.b_re) + og +
+                                     (long long)(a.off + c0 + c) * a.M + j
+                               : a.b_re;
+        tbl_copies.dst[i] = (part * kBN + c) * kLd + j;
+        tbl_copies.lim[i] = in ? (ok ? a.M - j : 0) : -1;
+      }
+#pragma unroll
+      for (int i = 0; i < kRawN; ++i) {
+        const int v = p + i * kProd;
+        const int row = v / kPerRow, j = (v - row * kPerRow) * 4;
+        const bool in = v < (cplx ? 4 : 3) * T::kBM * kPerRow;
+        const long long at = in ? src[row] : -1;
+        const int arr = row / T::kBM;
+        const float* base = arr == 0   ? a.v_re
+                            : arr == 1 ? a.v_im
+                            : arr == 2 ? a.t_re
+                                       : a.t_im;
+        raw_copies.src[i] = at >= 0 ? base + at + j : a.v_re;
+        raw_copies.dst[i] = R::kTbl + row * kLd + j;
+        raw_copies.lim[i] = in ? (at >= 0 ? a.M - j : 0) : -1;
+      }
+    }
+    for (int s = 0; s < n + kLead; ++s) {
+      if (s < n) {
+        const int slot = s % kStages;
+        if (s >= kStages)   // the consumers are done with its last use
+          hopper::mbar_wait(empty(slot), (s / kStages - 1) & 1);
+        float* st = smem + slot * R::kStage;
+        const int m0 = (s0 + s) * kBK;
+        if constexpr (kVec == 4) {
+          tbl_copies.issue(st, m0);
+          raw_copies.issue(st, m0);
+        } else {
+          for (int v = p; v < 2 * kBN * kPerRow; v += kProd) {
+            const int part = v / (kBN * kPerRow);
+            const int rem = v - part * kBN * kPerRow;
+            const int c = rem / kPerRow, j = (rem - c * kPerRow) * kVec;
+            const float* tbl = part ? a.b_im : a.b_re;
+            const bool ok = c0 + c < a.C && m0 + j < a.M;
+            copy_async<4 * kVec>(
+                st + (part * kBN + c) * kLd + j,
+                ok ? tbl + og + (long long)(a.off + c0 + c) * a.M + m0 + j
+                   : tbl,
+                ok ? 4 * kVec : 0);
+          }
+          float* raw = st + R::kTbl;
+          for (int v = p; v < (cplx ? 4 : 3) * T::kBM * kPerRow; v += kProd) {
+            const int row = v / kPerRow, j = (v - row * kPerRow) * kVec;
+            const long long at = src[row];
+            const bool ok = at >= 0 && m0 + j < a.M;
+            const int arr = row / T::kBM;
+            const float* base = arr == 0   ? a.v_re
+                                : arr == 1 ? a.v_im
+                                : arr == 2 ? a.t_re
+                                           : a.t_im;
+            copy_async<4 * kVec>(raw + row * kLd + j,
+                                 ok ? base + at + m0 + j : a.v_re,
+                                 ok ? 4 * kVec : 0);
+          }
+        }
+      }
+      copy_commit();
+      if (s < kLead) continue;
+      copy_wait<kLead>();   // this thread's copies of stage s - kLead
+      asm volatile("bar.sync 1, %0;\n" ::"n"(kProd) : "memory");
+      const int slot = (s - kLead) % kStages;
+      float* w = smem + slot * R::kStage + R::kTbl;
+      for (int v = p; v < T::kBM * (kBK / 4); v += kProd) {
+        const int qr = v / (kBK / 4), qc = 4 * (v - qr * (kBK / 4));
+        const float* at = w + qr * kLd + qc;
+        Quad qd;
+        qd.vr = *reinterpret_cast<const float4*>(at);
+        qd.vi = *reinterpret_cast<const float4*>(at + T::kBM * kLd);
+        qd.tr = *reinterpret_cast<const float4*>(at + 2 * T::kBM * kLd);
+        qd.ti = cplx ? *reinterpret_cast<const float4*>(at + 3 * T::kBM * kLd)
+                     : make_float4(0.f, 0.f, 0.f, 0.f);
+        store_weights<T::kBM, kLd>(w, qr, qc, qd, cplx);
+      }
+      hopper::mbar_arrive(full(slot));
+    }
+  } else {   // the consumers
+    const int wm = warp / T::kWN, wn = warp % T::kWN;
+    float part[kMT][kNT][4];
+    for (int i = 0; i < n; ++i) {
+      const int slot = i % kStages;
+      hopper::mbar_wait(full(slot), (i / kStages) & 1);
+      const float* st = smem + slot * R::kStage;
+      products<kWM, kMT>(part, st + R::kTbl, st, wm, wn, lane);
+#pragma unroll
+      for (int mt = 0; mt < kMT; ++mt)
+#pragma unroll
+        for (int nt = 0; nt < kNT; ++nt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[mt][nt][e] += part[mt][nt][e];
+      __syncwarp();
+      if (lane == 0) hopper::mbar_arrive(empty(slot));
+    }
+  }
+  __syncthreads();   // every stage is consumed; the ring is free
+
+  // the partial tile [kBM][kLdP] over the ring: accumulator i of tile (mt,
+  // nt) is row gid (+8 for i >= 2), column 2 tig (+1 for odd i)
+  float* mine = smem;
+  if (tid < kThreads) {
+    const int wm = warp / T::kWN, wn = warp % T::kWN;
+    const int gid = lane >> 2, tig = lane & 3;
+#pragma unroll
+    for (int mt = 0; mt < kMT; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < kNT; ++nt)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int rr = wm * kMT * 16 + mt * 16 + gid + 8 * h;
+          const int cc = wn * kNT * 8 + nt * 8 + 2 * tig;
+          *reinterpret_cast<float2*>(mine + rr * kLdP + cc) =
+              make_float2(acc[mt][nt][2 * h], acc[mt][nt][2 * h + 1]);
+        }
+  }
+  cluster.sync();   // every block's partial tile is in its shared memory
+  const int first = rank * T::kBM / q, last = (rank + 1) * T::kBM / q;
+  for (int v = tid; v < (last - first) * (kBN / 4); v += kBlock) {
+    const int rr = first + v / (kBN / 4), cc = 4 * (v % (kBN / 4));
+    // every rank's partial loaded first, then summed in rank order
+    float4 pt[kMaxCluster];
+#pragma unroll
+    for (int j = 0; j < kMaxCluster; ++j)
+      if (j < q)
+        pt[j] = *reinterpret_cast<const float4*>(
+            cluster.map_shared_rank(mine, j) + rr * kLdP + cc);
+    float4 sum = pt[0];
+#pragma unroll
+    for (int j = 1; j < kMaxCluster; ++j) {
+      if (j < q) {
+        sum.x += pt[j].x;
+        sum.y += pt[j].y;
+        sum.z += pt[j].z;
+        sum.w += pt[j].w;
+      }
+    }
+    if (r0 + rr >= a.rows) continue;
+    const long long at = ((long long)row0 + rr) * a.C + c0 + cc;
+    const float vals[4] = {sum.x, sum.y, sum.z, sum.w};
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      if (c0 + cc + e < a.C)
+        a.out[at + e] = a.add ? vals[e] + a.add[at + e] : vals[e];
+  }
+  cluster.sync();   // no block leaves while its partial is still read
+}
+
+template <int kWM, int kMT, int kVec>
+int launch_tile(const Args& a, const Plan& p, void* stream) {
+  using R = Ring<kWM, kMT>;
+  auto kernel = span_reduce_cluster<kWM, kMT, kVec>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, R::kSmemBytes);
+  if (err != cudaSuccess) return (int)err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)(p.tiles * p.q), 1, 1);
+  cfg.blockDim = dim3(kBlock, 1, 1);
+  cfg.dynamicSmemBytes = R::kSmemBytes;
+  cfg.stream = static_cast<cudaStream_t>(stream);
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = p.q;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, kernel, a);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
+template <int kVec>
+int launch_vec(const Args& a, const Plan& p, void* stream) {
+  if (p.bm == 64) return launch_tile<2, 2, kVec>(a, p, stream);
+  if (p.bm == 32) return launch_tile<2, 1, kVec>(a, p, stream);
+  return launch_tile<1, 1, kVec>(a, p, stream);
+}
+
+long long blocks(int O, int L, int R, int C, long long tbl_stride) {
+  long long rows, groups;
+  row_groups(O, L, R, tbl_stride, rows, groups);
+  const Plan p(rows, groups, C, 1);
+  return p.tiles * p.q;
+}
+
+int launch(const float* t_re, const float* t_im, const float* v_re,
+           const float* v_im, const float* b_re, const float* b_im,
+           long long tbl_stride, const float* add, float* out, int O, int L,
+           int R, int C, int M, int off, int vec4, void* stream) {
+  long long rows, groups;
+  row_groups(O, L, R, tbl_stride, rows, groups);
+  const Plan p(rows, groups, C, vec4);
+  const Args a{t_re, t_im, v_re, v_im, b_re, b_im, tbl_stride, add, out,
+               L, R, C, M, off, (int)rows,
+               (int)((rows + p.bm - 1) / p.bm), (C + kBN - 1) / kBN, 0};
+  return vec4 ? launch_vec<4>(a, p, stream) : launch_vec<1>(a, p, stream);
+}
+
+}  // namespace cl
+
+
 extern "C" {
 
 // The variants (ops/span_reduce.py::VARIANTS): 0 mma16, 1 mma64 (the
 // cp.async and mma.sync design at 16 or 64 rows a block), 2 wgmma (the
 // TMA and wgmma pipeline), 3 fp32 (the streaming design on the
 // CUDA cores, L R <= 4 rows an object), 4 split (an object's table rows
-// as A, the modes split over warps; L R <= 32 rows an object).
+// as A, the modes split over warps; L R <= 32 rows an object), 5 cluster
+// (the mma design's tiles with the modes split over a thread-block
+// cluster, reduced through distributed shared memory).
 
 // Blocks of one launch of ``variant`` (the wrapper checks them against
 // the grid limit).
@@ -1213,6 +1649,7 @@ long long span_reduce_blocks(int O, int L, int R, int C,
     return wg::blocks(O, L, R, C, tbl_stride == 0, wg::Cfg::kBM);
   if (variant == 3) return fp32::blocks(O, C);
   if (variant == 4) return sp::blocks(O, C);
+  if (variant == 5) return cl::blocks(O, L, R, C, tbl_stride);
   long long rows, groups;
   row_groups(O, L, R, tbl_stride, rows, groups);
   const int c_tiles = (C + kBN - 1) / kBN;
@@ -1246,6 +1683,9 @@ int span_reduce(const float* t_re, const float* t_im, const float* v_re,
                        add, out, O, L, R, C, M, off, stream);
   if (variant == 4)
     return sp::launch(t_re, t_im, v_re, v_im, b_re, b_im, tbl_stride, add,
+                      out, O, L, R, C, M, off, vec4, stream);
+  if (variant == 5)
+    return cl::launch(t_re, t_im, v_re, v_im, b_re, b_im, tbl_stride, add,
                       out, O, L, R, C, M, off, vec4, stream);
   long long rows, groups;
   row_groups(O, L, R, tbl_stride, rows, groups);

@@ -127,11 +127,11 @@ def load() -> ctypes.CDLL:
             lib.fused_block_row_floats.restype = i
             lib.chunk_scan.argtypes = [p] * 6 + [ll] + [p] * 4 + [i] * 3 + [p]
             lib.chunk_scan.restype = i
-            lib.toeplitz_conv.argtypes = [p] * 3 + [i] * 6 + [p]
+            lib.toeplitz_conv.argtypes = [p] * 3 + [i] * 7 + [p]
             lib.toeplitz_conv.restype = i
-            lib.toeplitz_conv_smem_bytes.argtypes = [i]
+            lib.toeplitz_conv_smem_bytes.argtypes = [i, i]
             lib.toeplitz_conv_smem_bytes.restype = ll
-            lib.toeplitz_conv_blocks.argtypes = [i] * 4
+            lib.toeplitz_conv_blocks.argtypes = [i] * 5
             lib.toeplitz_conv_blocks.restype = ll
             lib.span_inject.argtypes = ([p] * 9 + [ll] + [p] * 2 + [i] * 9
                                         + [p])

@@ -24,8 +24,12 @@ tiles that fill the card; for per-object g, bound by reading its tables,
 a float32 stream on the CUDA cores at a few rows and ``split`` at a full
 slot bucket on short chunks (the live stream's one- and four-block spans:
 the table's rows as the GEMM's A, read once, the modes split over
-warps); and the cp.async and mma.sync one (the table split in registers)
-for the rest.
+warps); for a shared table's few rows, ``cluster``: the mma
+design's tiles with the modes split over a thread-block cluster,
+producer warps streaming the rows and forming the weights beside
+consumer warps on the tensor cores, the partial tiles summed in rank
+order through distributed shared memory; and the cp.async and mma.sync
+one (the table split in registers) for the rest.
 """
 from __future__ import annotations
 
@@ -36,7 +40,7 @@ from .integrator import _complex_weights
 MAX_BLOCKS = 2**31 - 1    # one grid dimension
 SMS = 132                 # streaming multiprocessors of an H100
 # the kernel's variants, by their number in its C interface
-VARIANTS = ("mma16", "mma64", "wgmma", "fp32", "split")
+VARIANTS = ("mma16", "mma64", "wgmma", "fp32", "split", "cluster")
 FP32_ROWS = 4             # the fp32 variant's most rows an object (L R)
 SPLIT_ROWS = 32           # the split variant's most rows an object (L R)
 # the shapes variant_for sends to the split variant, by A/B against mma16
@@ -45,6 +49,13 @@ SPLIT_ROWS = 32           # the split variant's most rows an object (L R)
 # four-block spans' g, 17 rows, and hom, 8; C = 64 and 256; at C = 512
 # mma16 measured level)
 SPLIT_ROUTE = (FP32_ROWS + 1, 256)
+# the shapes variant_for sends to the cluster variant, by A/B against
+# mma16, mma64 and wgmma (PERF.md): a shared table's calls of at most
+# this many rows (O L R) times 128-column tiles: g of one slot with one
+# or two listener rows at C <= 512 (up to 512 x 4) and hom of 8 chunks at
+# C <= 256 (2048 x 2); a full bucket's 4352-8704 rows stay with mma16,
+# mma64 or wgmma, where cluster measured slower
+CLUSTER_ROUTE = 4096
 # k8 steps between restarts of the wgmma variant's products (the tensor
 # cores' float32 accumulation truncates): at hom's depth 2M = 2048, 16
 # measured -118.7 dB against the twin, 32 -114.0 and 64 -108.5, past the
@@ -59,7 +70,9 @@ def variant_for(o: int, nl: int, r: int, c: int, m: int, og: int) -> str:
     """The kernel variant for a call's shape, by the shape alone: wgmma
     where one table's rows (all O R of a shared table, R of a per-object
     one) fill 128-row tiles, those tiles fill the card and the TMA can
-    stride the modes (4 | M); for per-object tables, which stream their
+    stride the modes (4 | M); cluster for a shared table's calls within
+    CLUSTER_ROUTE (g of one slot, hom on short chunks); for per-object
+    tables, which stream their
     tables and are bound by those bytes, fp32 at most FP32_ROWS rows an
     object (g of a few slots) and split within SPLIT_ROUTE (g of a full
     bucket and hom on short chunks); else mma (calls too small to fill
@@ -72,6 +85,8 @@ def variant_for(o: int, nl: int, r: int, c: int, m: int, og: int) -> str:
     if m % 4 == 0 and rows >= 128 and (
             nl * groups * -(-rows // 128) * c_tiles >= SMS):
         return "wgmma"
+    if shared and nl * rows * c_tiles <= CLUSTER_ROUTE:
+        return "cluster"
     if not shared and m % 4 == 0 and nl * r <= FP32_ROWS:
         return "fp32"
     if (not shared and SPLIT_ROUTE[0] <= nl * r <= SPLIT_ROWS

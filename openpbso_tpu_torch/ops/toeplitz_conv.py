@@ -13,7 +13,12 @@ einsum. On CUDA tensors ``toeplitz_conv`` launches a hand-written kernel
 cores with the 3xTF32 split (FP32-accurate: held to <= -110 dB against
 the twin) and builds each Toeplitz fragment from ``g`` in shared memory;
 on CPU tensors it runs ``toeplitz_conv_reference``, the JAX formula, which
-is also what the kernel is held against on the card.
+is also what the kernel is held against on the card. The kernel source
+holds two designs; ``variant_for`` picks one from the shape alone: v3
+(16 chunks a block as the GEMM's rows, the Toeplitz operand as B) and,
+for the live stream's short spans (at most 8 chunks of at most 256
+samples), the transposed product (the samples as rows, the chunks one n8
+tile, one block an object).
 """
 from __future__ import annotations
 
@@ -21,6 +26,14 @@ import torch
 
 MAX_SMEM_BYTES = 232448   # dynamic shared memory a block may use on sm_90
 MAX_BLOCKS = 2**31 - 1    # one grid dimension
+# the kernel's variants, by their number in its C interface
+VARIANTS = ("v3", "short")
+SHORT_ROUTE = (8, 256)   # the short variant's limits: X chunks, C samples
+# the fewest slots at which short measured faster than v3 (bench/
+# toeplitz_ab.py, PERF.md), by chunk: from 2 slots at chunks of up to 64
+# samples (1 slot: 0.0055 against 0.0043 ms), from 8 past them (2-5 slots
+# at 256 samples: 2-8% slower, 8 slots 0.030 against 0.039)
+SHORT_SLOTS = ((64, 2), (SHORT_ROUTE[1], 8))
 
 # launches of the card's kernel (one per call)
 LAUNCHES = 0
@@ -36,9 +49,19 @@ def toeplitz_conv_reference(g: torch.Tensor, f: torch.Tensor) -> torch.Tensor:
     return torch.einsum("olkcj,okxj->olxc", t_g, f)
 
 
-def _launch(g, f):
+def variant_for(o: int, nl: int, k: int, x: int, c: int) -> str:
+    """The kernel variant for a call's shape, by the shape alone: short
+    within SHORT_ROUTE (the one- and four-block spans' X = 8 chunks of 64
+    or 256 samples) at SHORT_SLOTS' slots or more (a busy stream's full
+    bucket), else v3."""
+    if x > SHORT_ROUTE[0] or c > SHORT_ROUTE[1]:
+        return "v3"
+    fewest = next(n for most, n in SHORT_SLOTS if c <= most)
+    return "short" if k >= fewest else "v3"
+
+
+def _launch(g, f, variant):
     from . import _build
-    lib = _build.load()
     o, nl, k, c = g.shape
     x = f.shape[2]
     for t in (g, f):
@@ -48,10 +71,15 @@ def _launch(g, f):
     if min(o, nl, x, c) < 1:
         raise ValueError(f"toeplitz_conv needs O, L, X, C >= 1; got g "
                          f"{tuple(g.shape)}, f {tuple(f.shape)}")
-    if lib.toeplitz_conv_blocks(o, nl, x, c) > MAX_BLOCKS:
+    if variant == "short" and (x > 8 or c > 256):
+        raise ValueError("toeplitz_conv (short) takes X <= 8 chunks of C "
+                         f"<= 256 samples; got X = {x}, C = {c}")
+    lib = _build.load()
+    index = VARIANTS.index(variant)
+    if lib.toeplitz_conv_blocks(o, nl, x, c, index) > MAX_BLOCKS:
         raise ValueError(f"{o} objects x {nl} listener rows x {x} chunks "
                          "exceed the kernel's grid")
-    if lib.toeplitz_conv_smem_bytes(c) > MAX_SMEM_BYTES:
+    if lib.toeplitz_conv_smem_bytes(c, index) > MAX_SMEM_BYTES:
         raise ValueError(f"chunk {c} does not fit the kernel's shared "
                          "memory; use a smaller chunk")
     g, f = g.contiguous(), f.contiguous()
@@ -61,8 +89,9 @@ def _launch(g, f):
     out = torch.empty((o, nl, x, c), dtype=torch.float32, device=g.device)
     with _build.device_guard(g):
         err = lib.toeplitz_conv(g.data_ptr(), f.data_ptr(), out.data_ptr(),
-                                o, nl, k, x, c, vec4, _build.launch_stream(g))
-    _build.check(err, "toeplitz_conv")
+                                o, nl, k, x, c, vec4, index,
+                                _build.launch_stream(g))
+    _build.check(err, f"toeplitz_conv ({variant})")
     return out
 
 
@@ -70,15 +99,15 @@ def toeplitz_conv(g: torch.Tensor,     # [O, L, K, C] per-slot kernels
                   f: torch.Tensor      # [O, K, X, C] chunked profiles
                   ) -> torch.Tensor:
     """Causal within-chunk convolution summed over slots -> [O, L, X, C].
-    CUDA tensors launch the kernel (a failed build or launch raises); CPU
-    tensors run the plain twin."""
+    CUDA tensors launch the kernel's variant for the shape (variant_for; a
+    failed build or launch raises); CPU tensors run the plain twin."""
     global LAUNCHES
     o, _, k, c = g.shape
     if f.dim() != 4 or f.shape[0] != o or f.shape[1] != k or f.shape[3] != c:
         raise ValueError(f"shape mismatch: g {tuple(g.shape)} [O, L, K, C] "
                          f"against f {tuple(f.shape)} [O, K, X, C]")
     if g.is_cuda:
-        out = _launch(g, f)
+        out = _launch(g, f, variant_for(o, g.shape[1], k, f.shape[2], c))
         LAUNCHES += 1
         return out
     if g.device.type == "cpu":

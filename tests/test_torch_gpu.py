@@ -215,6 +215,55 @@ def test_toeplitz_conv_matches_twin(cuda, o, nl, k, x, c):
                                 [k2.toeplitz_conv_reference(g, f)], db=-110)
 
 
+TOEPLITZ_CASES = [   # O, L, K, X, C: every variant held at each, forced
+    (4, 1, 17, 8, 64),                # one-block span, full bucket + AR
+    (3, 2, 17, 8, 256),               # four-block span, two listener rows
+    (5, 1, 1, 8, 64),                 # one-block span, plain stream
+    (3, 1, 1, 8, 256),                # four-block span, plain stream
+    (2, 1, 3, 5, 192),                # three-block span, ragged chunks
+    (2, 2, 2, 3, 30),                 # C of no whole float4 or m16 tile
+    (2, 1, 0, 8, 64),                 # no slots: zeros
+    (2, 1, 2, 9, 64),                 # nine chunks: short refuses
+    (1, 1, 1, 8, 512),                # chunks of 512: short refuses
+]
+
+
+@pytest.mark.parametrize("variant", k2.VARIANTS)
+@pytest.mark.parametrize("o,nl,k,x,c", TOEPLITZ_CASES)
+def test_every_toeplitz_variant_matches_twin(cuda, o, nl, k, x, c, variant):
+    """Each of the kernel's variants, whatever variant_for would pick,
+    <= -110 dB against the twin and bitwise repeatable; short refuses
+    more than 8 chunks or 256 samples before it builds anything."""
+    rng = np.random.default_rng(18)
+    g = _randn(rng, o, nl, k, c, device=cuda)
+    f = _randn(rng, o, k, x, c, device=cuda)
+    if variant == "short" and (x > 8 or c > 256):
+        with pytest.raises(ValueError, match="short"):
+            k2._launch(g, f, variant)
+        return
+    got = k2._launch(g, f, variant)
+    again = k2._launch(g, f, variant)
+    assert got.shape == (o, nl, x, c)
+    _assert_kernel_matches_twin([got], [again],
+                                [k2.toeplitz_conv_reference(g, f)], db=-110)
+
+
+def test_short_toeplitz_takes_misaligned_views(cuda):
+    """The short variant on views 4 bytes off a 16-byte boundary takes
+    its 4-byte copies; the wrapper routes the shape there."""
+    rng = np.random.default_rng(19)
+    g = _randn(rng, 3 * 17 * 64 + 1, device=cuda)[1:].reshape(3, 1, 17, 64)
+    f = _randn(rng, 3 * 17 * 8 * 64 + 1, device=cuda)[1:].reshape(
+        3, 17, 8, 64)
+    assert g.data_ptr() % 16 != 0 and f.data_ptr() % 16 != 0
+    assert k2.variant_for(3, 1, 17, 8, 64) == "short"
+    before = k2.LAUNCHES
+    got, again = k2.toeplitz_conv(g, f), k2.toeplitz_conv(g, f)
+    assert k2.LAUNCHES == before + 2
+    _assert_kernel_matches_twin([got], [again],
+                                [k2.toeplitz_conv_reference(g, f)], db=-110)
+
+
 def test_toeplitz_conv_takes_unaligned_rows(cuda):
     """Views that start off a 16-byte boundary take the 4-byte copies."""
     rng = np.random.default_rng(6)
@@ -420,6 +469,11 @@ REDUCE_CASES = [
      0, False),
     ("per-object hom, X = 8, C = 256", 3, True, 1, 8, 256, 256, False, 1,
      True),
+    ("shared g, K = 17, L = 2, C = 64", 12, False, 2, 17, 64, 128, True, 0,
+     False),
+    ("shared g, K = 17, C = 256", 9, False, 1, 17, 256, 256, False, 0,
+     False),
+    ("shared g, K = 1, C = 512", 40, False, 1, 1, 512, 256, False, 0, False),
 ]
 
 
@@ -468,6 +522,29 @@ def test_every_span_reduce_variant_matches_twin(cuda, case, variant):
     again = k4._launch(*args, planes, variant)
     _assert_kernel_matches_twin([got], [again],
                                 [k4.span_reduce_reference(*args)], db=-110)
+
+
+def test_cluster_variant_takes_misaligned_rows(cuda):
+    """The cluster variant on modes of no whole float4 (M = 42) and on
+    views 4 bytes off a 16-byte boundary takes its 4-byte copies: <= -110
+    dB against the twin, bitwise repeatable; the wrapper routes a shared
+    table's g there."""
+    rng = np.random.default_rng(20)
+    for m_modes, off in ((42, 0), (None, 1)):
+        tables = _span_table(20, 40, 48, True, cuda, m_modes)
+        m = tables.b_re.shape[-1]
+
+        def view(*shape):
+            n = int(np.prod(shape))
+            return _randn(rng, n + off, device=cuda)[off:].reshape(shape)
+        t = [view(20, 1, m) for _ in range(2)]
+        v = [view(20, 3, m) for _ in range(2)]
+        assert k4.variant_for(20, 1, 3, 48, m, 1) == "cluster"
+        args = (*t, *v, tables.b_re, tables.b_im, 0)
+        _assert_kernel_matches_twin([k4.span_reduce(*args)],
+                                    [k4.span_reduce(*args)],
+                                    [k4.span_reduce_reference(*args)],
+                                    db=-110)
 
 
 @pytest.mark.parametrize("shared", [True, False])

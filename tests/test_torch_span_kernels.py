@@ -145,6 +145,30 @@ def test_span_reduce_twin_matches_jax(shared, nl, rows, off, add, r, c,
     assert dberr(got.numpy(), ref) <= -100
 
 
+@pytest.mark.parametrize("c", [64, 256])
+@pytest.mark.parametrize("nl,rows", [(1, "real"), (2, "complex")])
+def test_span_reduce_twin_matches_jax_shared_full_bucket(nl, rows, c, dberr):
+    """g on a shared table at a full slot bucket and the AR slot (K = 17),
+    a corner of phase 13's shared g grid: one listener row or a binaural
+    scene's two complex rows."""
+    b_re, b_im = _table(True, c)
+    rng = np.random.default_rng(nl * 10 + c)
+    t_re = _rand(rng, O, nl, M)
+    t_im = _rand(rng, O, nl, M) if rows == "complex" else None
+    v_re, v_im = _rand(rng, O, 17, M), _rand(rng, O, 17, M)
+    ref = _jax_reduce(t_re, t_im, v_re, v_im, b_re.numpy(), b_im.numpy(), 0,
+                      None)
+    before = k4.LAUNCHES
+    got = k4.span_reduce(torch.from_numpy(t_re),
+                         None if t_im is None else torch.from_numpy(t_im),
+                         torch.from_numpy(v_re), torch.from_numpy(v_im),
+                         b_re, b_im, 0)
+    assert k4.LAUNCHES == before
+    assert got.shape == (O, nl, 17, c)
+    assert np.abs(ref).max() > 0
+    assert dberr(got.numpy(), ref) <= -100
+
+
 # --------------------------------------------------------- the wrappers
 
 
@@ -408,7 +432,7 @@ def test_wrappers_take_planes_on_the_cpu(shared):
     ((256, 1, 512, 512, 1024, 1), "wgmma"),       # hom, shared nb=512
     ((256, 1, 1024, 512, 1024, 256), "wgmma"),    # hom, hetero nb=1024
     ((256, 2, 20, 512, 1024, 1), "wgmma"),        # hom, shared, L = 2
-    ((256, 1, 1, 512, 1024, 1), "mma16"),         # g, shared: 256 rows
+    ((256, 1, 1, 512, 1024, 1), "cluster"),       # g, shared: 256 rows
     ((256, 1, 1, 512, 1024, 256), "fp32"),        # g, per-object
     ((256, 2, 2, 512, 1024, 256), "fp32"),        # g, per-object, L R = 4
     ((256, 1, 16, 512, 1024, 256), "mma16"),      # hom, hetero nb=16
@@ -419,13 +443,27 @@ def test_wrappers_take_planes_on_the_cpu(shared):
     ((64, 1, 16, 512, 512, 64), "mma16"),         # a (2, 2) shard's hom
     ((64, 1, 1, 512, 512, 64), "fp32"),           # a (2, 2) shard's g
     ((256, 1, 512, 512, 42, 1), "mma64"),         # 42 modes: no TMA
-    ((3, 1, 40, 64, 128, 1), "mma16"),            # too few tiles
+    ((3, 1, 40, 64, 128, 1), "cluster"),          # a shared table, few rows
     ((256, 1, 17, 256, 1024, 256), "split"),      # g, four-block span
     ((256, 1, 8, 64, 1024, 256), "split"),        # hom, one-block span
     ((256, 1, 8, 256, 1024, 256), "split"),       # hom, four-block span
     ((256, 1, 5, 64, 1024, 256), "split"),        # g, 5 slots, C = 64
     ((256, 1, 16, 64, 1024, 256), "split"),       # g, bucket, no AR
     ((256, 2, 17, 64, 1024, 256), "mma16"),       # L R = 34 rows
+    # g on a shared table at the span's chunks, slots and listener rows
+    ((256, 1, 1, 64, 1024, 1), "cluster"),        # C = 64, one row
+    ((256, 2, 1, 64, 1024, 1), "cluster"),        # C = 64, two rows
+    ((256, 1, 1, 256, 1024, 1), "cluster"),       # C = 256
+    ((256, 2, 1, 256, 1024, 1), "cluster"),       # C = 256, two rows
+    ((256, 2, 1, 512, 1024, 1), "cluster"),       # 8c's g: 512 x 4 tiles
+    ((256, 1, 17, 64, 1024, 1), "mma16"),         # a full bucket, C = 64
+    ((256, 2, 17, 64, 1024, 1), "mma16"),         # and two rows
+    ((256, 1, 17, 256, 1024, 1), "mma16"),        # a full bucket, C = 256
+    ((256, 2, 17, 256, 1024, 1), "wgmma"),        # and two rows
+    ((256, 1, 17, 512, 1024, 1), "wgmma"),        # a full bucket, C = 512
+    ((256, 1, 8, 64, 1024, 1), "cluster"),        # hom, a shared one-block
+    ((256, 1, 8, 256, 1024, 1), "cluster"),       # hom, 2048 x 2 tiles
+    ((256, 1, 8, 512, 1024, 1), "mma16"),         # hom, 2048 x 4 tiles
 ])
 def test_span_reduce_variant_by_shape(args, want):
     """The variant follows from the shape alone: the same answer every
