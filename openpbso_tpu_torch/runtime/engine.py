@@ -37,7 +37,7 @@ import torch
 
 from ..config import SAMPLE_RATE
 from ..ops.forces import ar_stability_radius
-from .profiling import BlockProfiler
+from . import profiling
 from .session import ModalSession
 
 
@@ -82,9 +82,13 @@ class ControlEvent:
 
 def _host(x) -> np.ndarray:
     """One explicit device-to-host copy of a device tensor (it waits for
-    the work that produces it); arrays pass through."""
+    the work that produces it: the span ``engine.copy``); arrays pass
+    through."""
     if isinstance(x, torch.Tensor):
-        return x.detach().cpu().numpy()
+        tok = profiling.begin(profiling.COPY)
+        out = x.detach().cpu().numpy()
+        profiling.end(tok)
+        return out
     return np.asarray(x)
 
 
@@ -225,13 +229,15 @@ class StreamingEngine:
         self._on_qnorm = on_qnorm
         self._post_mix = post_mix
         self.health = BufferHealth()
-        self.profiler = BlockProfiler(session.config.block_size, SAMPLE_RATE)
+        self.profiler = profiling.BlockProfiler(session.config.block_size,
+                                                SAMPLE_RATE)
         self._stop = threading.Event()
         self._ready = threading.Event()   # the synth thread is warm
         self._synth_thread: threading.Thread | None = None
         self._consume_thread: threading.Thread | None = None
         self._last_block: np.ndarray | None = None
         self._blocks_done = 0
+        self._dispatches = 0      # the trace id of the spans of a dispatch
         self._record = record
         self.recorded: list[tuple[int, object]] = []
         # the pre-stream listener position (a [3] world point only; Scene
@@ -481,6 +487,10 @@ class StreamingEngine:
     # ----------------------------------------------------------- lifecycle
 
     def _apply_events(self) -> None:
+        """The queued events, applied to the session: the span
+        ``engine.apply``, counting them."""
+        tok = profiling.begin(profiling.APPLY)
+        applied = 0
         # <=16 events per block keeps the synthesis deadline safe while
         # draining bursts quickly (the reference applies <=1 per block,
         # modal_solver.h:184)
@@ -489,6 +499,7 @@ class StreamingEngine:
                 ev = self._events.get_nowait()
             except queue.Empty:
                 break
+            applied += 1
             if self._record:
                 self.recorded.append((self.session.sample_clock, ev))
             if isinstance(ev, HitEvent):
@@ -514,10 +525,13 @@ class StreamingEngine:
             if self._post_mix is not None and \
                     hasattr(self._post_mix, "on_listener"):
                 self._post_mix.on_listener(tr.listener)
+            applied += 1
         for ar in self._arprm.take():
             if self._record:
                 self.recorded.append((self.session.sample_clock, ar))
             self.session.set_ar_params(ar.obj, ar.a, ar.sigma, ar.mu)
+            applied += 1
+        profiling.end(tok, applied)
 
     def _span_mix(self, n_blocks: int):
         """One span dispatch -> device mix [N, C]; routes through the
@@ -529,7 +543,15 @@ class StreamingEngine:
         return self.session._step_span(n_blocks)
 
     def _synth_once(self) -> list[np.ndarray]:
-        """One synthesis dispatch -> list of host audio blocks."""
+        """One synthesis dispatch -> list of host audio blocks: the span
+        ``engine.synth``, counting them (its enqueue, and each copy's wait
+        as a child ``engine.copy``)."""
+        tok = profiling.begin(profiling.SYNTH)
+        blocks = self._synth_blocks()
+        profiling.end(tok, len(blocks))
+        return blocks
+
+    def _synth_blocks(self) -> list[np.ndarray]:
         want_qnorm = (self._qnorm_every > 0
                       and self._blocks_done >= self._next_qnorm)
         if want_qnorm:
@@ -625,12 +647,17 @@ class StreamingEngine:
 
     def _synth_loop_inner(self) -> None:
         while not self._stop.is_set():
-            t0 = time.perf_counter()
+            # the span engine.dispatch and the profiler's sample share
+            # their stamps
+            t0 = time.time_ns()
+            tok = profiling.begin(profiling.DISPATCH, self._dispatches, t0)
             self._apply_events()
             blocks = self._synth_once()
-            per_block = (time.perf_counter() - t0) / len(blocks)
+            t1 = time.time_ns()
+            profiling.end(tok, len(blocks), t1=t1)
+            self._dispatches += 1
+            self.profiler.record((t1 - t0) * 1e-9, len(blocks))
             for mix_np in blocks:
-                self.profiler.record(per_block)
                 self._blocks_done += 1
                 # pacing: blocks when the consumer lags sound_queue_depth
                 while not self._stop.is_set():

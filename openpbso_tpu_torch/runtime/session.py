@@ -49,6 +49,7 @@ from ..ops.integrator import resolve_backend_name
 from ..ops.span import (ChunkSpanTables, build_span_tables, choose_radix,
                         with_planes)
 from ..ops.integrator import decay_block_blocked
+from . import profiling
 from .solver import (SolverConfig, decay_block, decay_span_step,
                      default_gains, step_block, step_block_xfade, step_multi,
                      step_multi_transfers, step_multi_transfers_sound,
@@ -516,20 +517,25 @@ class ModalSession:
         Cached chunked tables carry their SpanPlanes (ops/span.py::
         with_planes), the layout the contraction kernels read, made once
         per cached table: tables put in the cache without them get them at
-        their first use here."""
+        their first use here. A build, of either, is the span
+        ``session.tables``."""
         if self._lam64 is None:
             return None
         span = n_blocks * self.config.block_size
         chunk = choose_radix(span)
         tables = self._span_cache.get(chunk)
-        if tables is None:
-            tables = build_span_tables(
-                self._lam64, chunk, radix=chunk,
-                num_modes=self.bank.num_modes, dtype=self._dtype,
-                device=self.device)
-        if isinstance(tables, ChunkSpanTables) and tables.planes is None:
-            tables = with_planes(tables)
-        self._span_cache[chunk] = tables
+        if tables is None or (isinstance(tables, ChunkSpanTables)
+                              and tables.planes is None):
+            tok = profiling.begin(profiling.TABLES)
+            if tables is None:
+                tables = build_span_tables(
+                    self._lam64, chunk, radix=chunk,
+                    num_modes=self.bank.num_modes, dtype=self._dtype,
+                    device=self.device)
+            if isinstance(tables, ChunkSpanTables) and tables.planes is None:
+                tables = with_planes(tables)
+            self._span_cache[chunk] = tables
+            profiling.end(tok)
         return dataclasses.replace(tables, n_chunks=span // chunk)
 
     def _span_bucket(self, with_sustained: bool) -> int | None:
@@ -568,7 +574,8 @@ class ModalSession:
         from the host AR mirror: Og = 1 while every object shares one
         tuning. Cached until a retune of ``a``. ``force_per_object`` builds
         the [O, ...] layout even for uniform tunings: warmup runs the
-        retuned-drag span with it before any retune happens."""
+        retuned-drag span with it before any retune happens. A build is
+        the span ``session.tables``."""
         a = self._ar_host
         shared = bool((a == a[:1]).all()) and not force_per_object
         cap = (self.AR_GROUP_CAP_SHARED if shared
@@ -576,10 +583,12 @@ class ModalSession:
         length = span_group(n_blocks, cap) * self.config.block_size
         tbl = self._ar_g.get((length, shared))
         if tbl is None:
+            tok = profiling.begin(profiling.TABLES)
             tbl = torch.as_tensor(
                 ar_impulse_g(a[:1] if shared else a, length)).to(
                     self._dtype).to(self.device)
             self._ar_g[(length, shared)] = tbl
+            profiling.end(tok)
         return tbl
 
     # force_span materialises [O, K, N]-shaped intermediates (per-slot
@@ -597,7 +606,8 @@ class ModalSession:
         [n_blocks*S, C] (not synced). Caller checked span_eligible. The
         slot bucket is the live one (_span_bucket: 0 for a drag alone);
         ``num_slots``/``idle``/``with_sustained``/``ar_per_object``
-        override the host gating (warmup)."""
+        override the host gating (warmup). The span ``session.span``."""
+        tok = profiling.begin(profiling.SPAN)
         self._maybe_rebase()
         if idle is None:
             idle = self._idle() and self.config.decay_fast_path
@@ -606,6 +616,7 @@ class ModalSession:
         if num_slots == "auto":
             num_slots = self._span_bucket(with_sustained)
         k = self._expiry.shape[1] if num_slots is None else num_slots
+        live = self._live_pairs(n_blocks) if tok >= 0 else 0
         if (not idle and k * n_blocks * self.config.block_size
                 * self.bank.num_objects > self.SPAN_FORCE_BUDGET):
             mix = self._step_multi(n_blocks, with_sustained, num_slots)
@@ -613,7 +624,16 @@ class ModalSession:
             mix = self._span_mix(n_blocks, num_slots, idle, with_sustained,
                                  ar_per_object)
         self._clock += n_blocks * self.config.block_size
+        profiling.end(tok, 0 if idle else k, live)
         return mix
+
+    def _live_pairs(self, n_blocks: int) -> int:
+        """The (object, slot) pairs whose force produces inside the next
+        n_blocks: started before the span ends, not expired when it
+        starts (the host mirrors; the counter ``live`` of
+        ``session.span``, beside the slot bucket K it ran over)."""
+        end = self._clock + n_blocks * self.config.block_size
+        return int(((self._t0 < end) & (self._expiry > self._clock)).sum())
 
     def _span_mix(self, n_blocks: int, num_slots: int | None, idle: bool,
                   with_sustained: bool, ar_per_object: bool):
@@ -651,7 +671,9 @@ class ModalSession:
                          ar_per_object: bool = False):
         """_step_span returning the raw per-object sound [O, N] (device,
         not synced) for span-shaped post-mix stages. No SPAN_FORCE_BUDGET
-        fallback: it serves lookahead-sized spans far below the budget."""
+        fallback: it serves lookahead-sized spans far below the budget.
+        The span ``session.span``."""
+        tok = profiling.begin(profiling.SPAN)
         self._maybe_rebase()
         if idle is None:
             idle = self._idle() and self.config.decay_fast_path
@@ -659,9 +681,12 @@ class ModalSession:
             with_sustained = self._with_sustained()
         if num_slots == "auto":
             num_slots = self._span_bucket(with_sustained)
+        live = self._live_pairs(n_blocks) if tok >= 0 else 0
         sound = self._span_sound(n_blocks, num_slots, idle,
                                  with_sustained and not idle, ar_per_object)
         self._clock += n_blocks * self.config.block_size
+        k = self._expiry.shape[1] if num_slots is None else num_slots
+        profiling.end(tok, 0 if idle else k, live)
         return sound
 
     def _span_sound(self, n_blocks: int, num_slots: int | None, idle: bool,

@@ -23,7 +23,7 @@ def _one_torch_thread():
 
 @pytest.mark.parametrize("n,capacity", [(0, 16), (10, 16), (40, 16)])
 def test_block_profiler_statistics_equal_the_jax_modules(n, capacity):
-    """Empty, partly filled and wrapped rings."""
+    """Empty, partly filled and wrapped rings of one-block dispatches."""
     samples = np.random.default_rng(0).gamma(2.0, 2e-3, n)
     a = jp.BlockProfiler(512, 44100, capacity=capacity)
     b = tp.BlockProfiler(512, 44100, capacity=capacity)
@@ -38,14 +38,7 @@ def test_block_profiler_statistics_equal_the_jax_modules(n, capacity):
     for f in ("count", "mean_ms", "p50_ms", "p95_ms", "p99_ms", "max_ms",
               "deadline_ms", "deadline_miss_rate", "rtf"):
         assert getattr(sa, f) == getattr(sb, f), f
-    for x, y in zip(a.jitter_histogram(8), b.jitter_histogram(8)):
-        np.testing.assert_array_equal(x, y)
-
-
-def test_timer_measures_its_block():
-    with tp.Timer() as t:
-        sum(range(1000))
-    assert t.elapsed > 0
+    assert sb.dispatches == min(n, capacity)
 
 
 def test_device_trace_writes_a_chrome_trace(tmp_path):
