@@ -76,7 +76,8 @@ def schedule_events(session, events: list[dict], model=None) -> int:
 
     Times quantize to block starts (modal_solver.h:184 granularity).
     Events address a mesh vertex (needs ``model``) or raw modal
-    amplitudes (``space``). Returns the number scheduled.
+    amplitudes (``space``). Returns the number scheduled. The hits'
+    device writes go in one batch (session.batched_writes).
 
     CAP: the per-object slot table holds ``num_slots`` concurrent
     future-dated hits — scheduling more than that on one object up
@@ -85,22 +86,23 @@ def schedule_events(session, events: list[dict], model=None) -> int:
     slot-budgeted WAVES (_hit_waves) instead of calling this once."""
     block = session.config.block_size
     count = 0
-    for ev in sorted(events, key=lambda e: float(e.get("t", 0.0))):
-        t = float(ev.get("t", 0.0))
-        when = int(round(t * SAMPLE_RATE / block)) * block
-        if "space" in ev:
-            space = np.asarray(ev["space"], np.float64)
-        elif model is not None:
-            space = model.modal_force_vertex(int(ev["vertex"]))
-        else:
-            raise ValueError(f"event at t={t} needs 'space' (no model "
-                             f"loaded for vertex addressing)")
-        session.hit(int(ev.get("obj", 0)), space,
-                    kind=str(ev.get("kind", "point")),
-                    width_us=float(ev.get("width_us", 100.0)),
-                    amp=float(ev.get("amp", 1.0)),
-                    when=max(when, session.sample_clock))
-        count += 1
+    with session.batched_writes():
+        for ev in sorted(events, key=lambda e: float(e.get("t", 0.0))):
+            t = float(ev.get("t", 0.0))
+            when = int(round(t * SAMPLE_RATE / block)) * block
+            if "space" in ev:
+                space = np.asarray(ev["space"], np.float64)
+            elif model is not None:
+                space = model.modal_force_vertex(int(ev["vertex"]))
+            else:
+                raise ValueError(f"event at t={t} needs 'space' (no model "
+                                 f"loaded for vertex addressing)")
+            session.hit(int(ev.get("obj", 0)), space,
+                        kind=str(ev.get("kind", "point")),
+                        width_us=float(ev.get("width_us", 100.0)),
+                        amp=float(ev.get("amp", 1.0)),
+                        when=max(when, session.sample_clock))
+            count += 1
     return count
 
 
@@ -158,6 +160,18 @@ def _apply_sustained(session, ev: dict) -> None:
                               mu=float(ev["mu"]))
     else:
         raise ValueError(f"unknown sustained action {action!r}")
+
+
+def _apply_actions(session, fns: list, events: int) -> None:
+    """The actions at one block, their device writes in one batch: the
+    span bake.schedule, counting the events they schedule and the device
+    writes they made."""
+    tok = profiling.begin(profiling.SCHEDULE)
+    writes = session.event_writes
+    with session.batched_writes():
+        for fn in fns:
+            fn(session)
+    profiling.end(tok, events, session.event_writes - writes)
 
 
 def _reseed_sustained(session, seed: int) -> None:
@@ -228,6 +242,12 @@ def _bake(session, timeline: dict, model,
                  1, partial(_apply_sustained, ev=ev), 1)
                 for ev in sustained]
     actions.sort(key=lambda a: (a[0], a[1]))
+    groups = []
+    for b, group in itertools.groupby(actions, key=lambda a: a[0]):
+        group = list(group)
+        groups.append((b, partial(_apply_actions,
+                                  fns=[fn for _, _, fn, _ in group],
+                                  events=sum(n for *_, n in group))))
     per_block = None
     if keyframes:
         per_block = listener_blocks(keyframes, n_blocks, block)
@@ -235,7 +255,7 @@ def _bake(session, timeline: dict, model,
             return session.render_doppler(
                 per_block, blocks_per_dispatch=blocks_per_dispatch,
                 smooth=smooth,
-                state_events=[(b, fn) for b, _, fn, _ in actions],
+                state_events=groups,
                 object_centers=timeline.get("objects"))
         if session.ffat is None or not session.use_transfer:
             # no transfer maps: the listener path only matters for Doppler
@@ -254,19 +274,12 @@ def _bake(session, timeline: dict, model,
             b1 - b0, blocks_per_dispatch=blocks_per_dispatch)
 
     out, done = [], 0
-    for b, group in itertools.groupby(actions, key=lambda a: a[0]):
+    for b, apply in groups:
         seg = render_range(done, b)
         if seg is not None:
             out.append(seg)
         done = max(done, b)
-        # the actions at one block: the span bake.schedule, counting the
-        # events they schedule
-        tok = profiling.begin(profiling.SCHEDULE)
-        events = 0
-        for _, _, fn, n in group:
-            fn(session)
-            events += n
-        profiling.end(tok, events)
+        apply(session)
     seg = render_range(done, n_blocks)
     if seg is not None:
         out.append(seg)

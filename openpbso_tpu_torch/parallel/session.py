@@ -10,10 +10,11 @@ SolverStates, one on each mesh cell's device, and each dispatch runs the
 port's solver code on every shard and reduces through sharding.psum.
 
 - Event ingestion stays host-side as in ModalSession. Its in-place writes
-  (hits, clears, drags, AR retunes) go through ``_write_rows``, which
-  routes an object row to its object shard and splits a modal row across
-  the mode shards; listener rows go through ``_install_transfer``, which
-  scatters only the transfer leaves. In the JAX package XLA keeps such
+  (hits, clears, drags, AR retunes, one at a time or a batch's rows
+  together) go through ``_put_rows``, which routes an object row, and a
+  batch's value of that row, to its object shard and splits a modal row
+  across the mode shards; listener rows go through
+  ``_install_transfer``, which scatters only the transfer leaves. In the JAX package XLA keeps such
   updates on the owning shard; here nothing would, so every write the base
   class makes is routed by hand.
 - Whole-state replacement (``self.state = ...``: warmup's restore, the
@@ -37,7 +38,7 @@ import torch
 from ..ops.coeffs import ModalBank
 from ..ops.integrator import decay_block_blocked
 from ..ops.span import choose_radix
-from ..runtime.session import ModalSession
+from ..runtime.session import ModalSession, _row_each
 from ..runtime.solver import (SolverConfig, step_multi_transfers,
                               step_multi_transfers_sound)
 from ..runtime.state import SolverState
@@ -107,8 +108,7 @@ class ShardedSession(ModalSession):
     def _cells(self):
         return np.ndindex(*self.mesh.devices.shape)
 
-    def _write_rows(self, leaf: str, obj, value, slot: int | None = None
-                    ) -> None:
+    def _put_rows(self, leaf: str, obj, value, slot=None) -> None:
         group, name = leaf.split(".")
         mode_axis = getattr(getattr(state_specs(), group), name)[1]
         n_obj, n_mode = self.mesh.devices.shape
@@ -117,23 +117,35 @@ class ShardedSession(ModalSession):
         # IndexError, as the unsharded session's indexing does)
         objs = np.arange(self.bank.num_objects)[
             np.atleast_1d(np.asarray(obj))]
+        each = np.ndim(obj) > 0
+        like = getattr(getattr(self._shards[0][0], group), name)
+        if isinstance(value, np.ndarray):
+            value = torch.as_tensor(value).to(like.dtype)
+        if each and isinstance(value, torch.Tensor):
+            # one row each: it travels with its object to the shard
+            value = _row_each(value, like.dim() - (slot is not None))
         for i in range(n_obj):
-            mine = objs[(objs >= i * per) & (objs < (i + 1) * per)] - i * per
-            if not mine.size:
+            mine = (objs >= i * per) & (objs < (i + 1) * per)
+            if not mine.any():
                 continue
-            rows = mine if np.ndim(obj) else int(mine[0])
+            rows = objs[mine] - i * per if each else int(objs[0]) - i * per
+            s = slot if np.ndim(slot) == 0 else np.asarray(slot)[mine]
+            v = value
+            if each and isinstance(v, torch.Tensor):
+                v = v[torch.from_numpy(mine)]
             for j in range(n_mode):
                 t = getattr(getattr(self._shards[i][j], group), name)
-                v = value
-                if isinstance(v, torch.Tensor):
-                    if mode_axis is not None:
-                        w = v.shape[-1] // n_mode
-                        v = v[..., j * w:(j + 1) * w]
-                    v = v.to(t.device)
-                if slot is None:
-                    t[rows] = v
+                vj = v
+                if isinstance(vj, torch.Tensor):
+                    if mode_axis is not None and vj.dim() and \
+                            vj.shape[-1] > 1:
+                        w = vj.shape[-1] // n_mode
+                        vj = vj[..., j * w:(j + 1) * w]
+                    vj = vj.to(t.device)
+                if s is None:
+                    t[rows] = vj
                 else:
-                    t[rows, slot] = v
+                    t[rows, s] = vj
 
     def _current_transfer(self) -> tuple:
         cell = self._shards[0][0]

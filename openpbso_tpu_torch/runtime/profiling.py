@@ -38,7 +38,7 @@ NAMES = ("engine.dispatch", "engine.apply", "engine.synth", "engine.copy",
          "session.span", "session.tables", "bake", "bake.schedule")
 (DISPATCH, APPLY, SYNTH, COPY, SPAN, TABLES, BAKE, SCHEDULE) = range(8)
 COUNTERS = {DISPATCH: ("blocks",), APPLY: ("events",), SYNTH: ("blocks",),
-            SPAN: ("K", "live"), SCHEDULE: ("events",)}
+            SPAN: ("K", "live"), SCHEDULE: ("events", "writes")}
 
 # a ring of this many spans holds the set-up and a 30 s window of the
 # busiest stream several times over (~5 spans a 11.6 ms block)

@@ -29,10 +29,13 @@ queue drops sends when full, modal_solver.h:330-333).
 Slot and channel writes are deliberately in place: the session owns its
 state, and an indexed write into the existing tensors is the PyTorch form
 of the JAX package's donated scatter (openpbso_tpu/runtime/session.py:33-43),
-which also reused the buffers.
+which also reused the buffers. Inside ``batched_writes`` the event methods
+stage their writes on the host, and the batch applies them as one indexed
+write a state leaf when it ends.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 
 import numpy as np
@@ -55,6 +58,22 @@ from .solver import (SolverConfig, decay_block, decay_span_step,
                      step_multi_transfers, step_multi_transfers_sound,
                      step_span, step_span_sound)
 from .state import clone_state, make_solver_state
+
+
+def _index(i, n: int) -> int:
+    """``i`` as a row of an axis of ``n``: negative counts from the end,
+    out of range raises IndexError, as indexing the axis does."""
+    i = int(i)
+    if not -n <= i < n:
+        raise IndexError(f"index {i} is out of bounds for an axis of {n}")
+    return i % n
+
+
+def _row_each(value: torch.Tensor, ndim: int) -> torch.Tensor:
+    """``value`` [n, ...] as one row each of an ``ndim``-axis indexed
+    result: trailing axes of one element added, to broadcast."""
+    return value.reshape(tuple(value.shape)
+                         + (1,) * (ndim - value.dim()))
 
 
 class ModalSession:
@@ -143,6 +162,13 @@ class ModalSession:
         # multi-listener sessions with lam64: derive per-mode interaural
         # time differences from the geometry on every move
         self.auto_itd = False
+        # the event writes staged by an open batched_writes, by leaf: [the
+        # rows' kind (whole object or one slot), {row key: value}]; None
+        # while no batch is open
+        self._staged: dict[str, list] | None = None
+        # the device writes the session's events have made (one a
+        # _write_rows call, or one a leaf when a batch applies)
+        self.event_writes = 0
 
     @property
     def devices(self) -> tuple:
@@ -163,14 +189,15 @@ class ModalSession:
             return int(free[0])
         return int(np.argmin(self._t0[obj]))  # overwrite the oldest
 
-    def _modal_vector(self, space: np.ndarray) -> torch.Tensor:
-        """[M] device row from modal amplitudes [M_audible] (zero-padded
-        or cut to the bank's modes)."""
+    def _modal_vector(self, space: np.ndarray) -> np.ndarray:
+        """[M] float64 host row from modal amplitudes [M_audible]
+        (zero-padded or cut to the bank's modes); the write rounds it to
+        the state's dtype."""
         m = self.bank.num_modes
         vec = np.zeros((m,), np.float64)
         space = np.asarray(space, np.float64).ravel()
         vec[: min(space.size, m)] = space[: m]
-        return torch.as_tensor(vec).to(self._dtype).to(self.device)
+        return vec
 
     def hit(self, obj: int, space: np.ndarray, *,
             kind: str = "point", width_us: float = 100.0,
@@ -251,9 +278,8 @@ class ModalSession:
                 f"unstable AR(2) tuning a={tuple(float(v) for v in a)}: "
                 f"characteristic root magnitude {radius:.4f} >= 1 (the "
                 f"impulse tables would overflow)")
-        a64 = np.asarray(a, np.float64)
-        self._write_rows("sustained.a", obj,
-                         torch.as_tensor(a64).to(self._dtype))
+        a64 = np.array(a, np.float64)    # a copy: a batch may hold it
+        self._write_rows("sustained.a", obj, a64)
         self._write_rows("sustained.sigma", obj, sigma)
         self._write_rows("sustained.mu", obj, mu)
         self._write_rows("sustained.ar_hist", obj, 0.0)
@@ -263,20 +289,97 @@ class ModalSession:
             self._ar_host[obj] = a64
             self._ar_g = {}
 
+    @contextlib.contextmanager
+    def batched_writes(self):
+        """Apply the enclosed events' device writes together, on leaving:
+        one index write a state leaf, from one host-to-device copy of its
+        rows, in place of a write (and for a modal row a synchronising
+        copy) an event call. The event methods still validate, allocate
+        slots and update the host mirrors at once; only their device
+        writes wait. Of several writes to one row the last wins, as in
+        the calls made one by one, and the state after the batch is
+        bitwise theirs. Nested batches act as one: the outermost applies.
+        An exception inside applies the writes staged before it, then
+        propagates. Until the batch ends the device state lags the host
+        mirrors, so it holds event calls only: a dispatch inside it
+        raises."""
+        if self._staged is not None:
+            yield
+            return
+        self._staged = {}
+        try:
+            yield
+        finally:
+            staged, self._staged = self._staged, None
+            for leaf, (per_slot, rows) in staged.items():
+                self._apply_staged(leaf, per_slot, rows)
+
     def _write_rows(self, leaf: str, obj, value, slot: int | None = None
                     ) -> None:
         """Write ``value`` in place into the rows ``obj`` (an object index
         or an array of them; with ``slot``, that slot of each) of the state
-        leaf named ``leaf`` ("slots.space", "sustained.active", ...). Every
-        in-place event write goes through here: a sharded session
-        (parallel/session.py) routes each row to the shards that own it.
-        A leaf with a mode axis takes a value whose last axis is modes."""
+        leaf named ``leaf`` ("slots.space", "sustained.active", ...): a
+        scalar, or a host row (float64 numpy, rounded to the leaf's dtype)
+        that each row takes. Every in-place event write goes through here:
+        at once, or staged while a batched_writes is open."""
+        if self._staged is None:
+            self._put_rows(leaf, obj, value, slot)
+            self.event_writes += 1
+            return
+        if isinstance(obj, (int, np.integer)):
+            objs = (_index(obj, self.bank.num_objects),)
+        else:
+            objs = np.arange(self.bank.num_objects)[np.asarray(obj)]
+            objs = objs.reshape(-1).tolist()
+        per_slot = slot is not None
+        run = self._staged.get(leaf)
+        if run is not None and run[0] != per_slot:
+            # whole-object rows and slot rows of one leaf overlap: apply
+            # the earlier kind before staging the other
+            self._apply_staged(leaf, *self._staged.pop(leaf))
+            run = None
+        if run is None:
+            run = self._staged[leaf] = [per_slot, {}]
+        rows = run[1]
+        if per_slot:
+            s = _index(slot, self._expiry.shape[1])
+            for o in objs:
+                rows[(o, s)] = value
+        else:
+            for o in objs:
+                rows[(o,)] = value
+
+    def _apply_staged(self, leaf: str, per_slot: bool, rows: dict) -> None:
+        """One leaf's staged rows (each key its last value) as one write:
+        the values stacked on the host as the calls gave them (float64
+        rows, or Python scalars: one kind a leaf), so that the write rounds
+        them to the leaf's dtype as it rounds a value written alone."""
+        keys = np.asarray(list(rows), np.int64)
+        self._put_rows(leaf, keys[:, 0], np.array(list(rows.values())),
+                       keys[:, 1] if per_slot else None)
+        self.event_writes += 1
+
+    def _put_rows(self, leaf: str, obj, value, slot=None) -> None:
+        """The device write of _write_rows. ``obj`` is an index or an
+        array of them, ``slot`` None, an index or an array beside ``obj``;
+        ``value`` a scalar or a host row, or with an array of rows a host
+        array of one row each (its trailing axes broadcast over a row's).
+        A sharded session (parallel/session.py) routes each row to the
+        shards that own it."""
         group, name = leaf.split(".")
         t = getattr(getattr(self.state, group), name)
-        if slot is None:
-            t[obj] = value
+        if isinstance(value, np.ndarray):
+            value = torch.as_tensor(value).to(t.dtype).to(t.device)
+        if isinstance(obj, np.ndarray):
+            if isinstance(value, torch.Tensor):
+                value = _row_each(value, t.dim() - (slot is not None))
+            # the indices in one copy
+            idx = tuple(torch.from_numpy(np.stack(
+                [obj] if slot is None else [obj, slot]).astype(np.int64))
+                .to(t.device))
         else:
-            t[obj, slot] = value
+            idx = obj if slot is None else (obj, slot)
+        t[idx] = value
 
     def _current_transfer(self) -> tuple:
         """The (re, im) transfer rows in use, im None for a real row."""
@@ -435,12 +538,16 @@ class ModalSession:
     # ----------------------------------------------------------- gating
 
     def _maybe_rebase(self) -> None:
-        """Re-zero the device clock origin before int32 wrap of the slot
+        """Before a dispatch: refuse one inside a batch of event writes,
+        and re-zero the device clock origin before int32 wrap of the slot
         clock. The subtraction is quantized to whole multiples of
         REBASE_PERIOD, so the device clock is always ``absolute clock mod
         REBASE_PERIOD`` at a step, however the stream was chunked. Expired
         slots' t0 is clamped (their producing predicate is false forever,
         so the clamp changes no output)."""
+        if self._staged is not None:
+            raise RuntimeError("a dispatch inside batched_writes: the "
+                               "staged event writes are not applied yet")
         delta = self._clock - self._clock_base
         if delta >= REBASE_PERIOD:
             sub = (delta // REBASE_PERIOD) * REBASE_PERIOD

@@ -6,8 +6,9 @@ sharded session held against the JAX package's sharded session where the
 JAX test compares one, at <= -100 dB (the span with drags included). The
 port's mesh names "cpu" for each of its cells. The checks this file adds
 hold the port's sharded session against its unsharded one: exactly one
-reduction per span dispatch, a hit routed to the last shard, a checkpoint
-round trip, and a complex row fading to a real one. Spans through
+reduction per span dispatch, a hit routed to the last shard, a batch of
+event writes routed row by row, a checkpoint round trip, and a complex row
+fading to a real one. Spans through
 superchunk and factored tables are held against the JAX package's
 unsharded session, because its sharded one raises on superchunk tables
 (tests/test_torch_sharding.py pins that refusal).
@@ -37,6 +38,7 @@ from openpbso_tpu_torch.runtime.audio import RawCollectorSink
 from openpbso_tpu_torch.runtime.engine import StreamingEngine
 from openpbso_tpu_torch.runtime.session import ModalSession
 from openpbso_tpu_torch.runtime.solver import SolverConfig
+from test_torch_batched_writes import assert_same_session
 
 pytestmark = pytest.mark.skipif(
     len(jax.devices()) < 8, reason="needs 8 virtual devices")
@@ -538,6 +540,35 @@ def test_hit_on_the_last_shard_is_routed(dberr):
                    or bool(sh._shards[i][j].slots.ftype.any())
                    for i, j in np.ndindex(2, 4))
     assert dberr(sh.render_multi(6, 3), ref.render_multi(6, 3)) <= -100
+
+
+@pytest.mark.parametrize("mesh_shape", [(2, 4), (8, 1)])
+def test_sharded_batched_writes_match_unsharded(mesh_shape, dberr):
+    """A batch of hits over every object (slots overwritten), drags,
+    retunes and a clear: each row's value travels with its object to the
+    shards that own it, so the gathered state is bitwise the unsharded
+    session's after the same batch, and the two sound alike."""
+    sh, ref, m = _pair(mesh_shape, reference="port")
+    rng = np.random.default_rng(11)
+    calls = [(int(rng.integers(8)), rng.normal(size=m), k % 3,
+              S * int(rng.integers(0, 6))) for k in range(40)]
+    for s in (sh, ref):
+        with s.batched_writes():
+            for obj, row, kind, when in calls:
+                s.hit(obj, row, kind=("point", "gaussian", "hertz")[kind],
+                      width_us=300.0, when=when)
+            s.sustained_start(7, -calls[0][1])
+            s.set_ar_params(7, a=(0.6, 0.2), sigma=0.003, mu=0.1)
+            s.sustained_start(2, calls[1][1])
+            s.clear_forces(5)
+            s.hit(5, calls[2][1])
+            s.sustained_update(2, calls[3][1])
+    assert sh.event_writes == ref.event_writes
+    assert_same_session(sh, ref)
+    assert dberr(_blocks(sh, 3), _blocks(ref, 3)) <= -100
+    a = sh.render_multi(8, blocks_per_dispatch=8)
+    b = ref.render_multi(8, blocks_per_dispatch=8)
+    assert np.abs(b).max() > 0 and dberr(a, b) <= -100
 
 
 def test_sharded_checkpoint_roundtrip(tmp_path):

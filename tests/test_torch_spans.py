@@ -272,6 +272,37 @@ def test_bake_schedule_counts_its_hits_and_sustained_actions():
                                                                 first + 1}
 
 
+def test_bake_schedule_counts_one_write_a_leaf_a_group():
+    """Each block's actions apply as one batch: ``writes`` is the leaves
+    the group touched, however many events it counts."""
+    sess = _session(objects=3)
+    at = [b * S / 44100 for b in (10, 20, 30)]
+    hits = [{"t": 0.0, "obj": k % 3, "space": _space(k).tolist(),
+             "kind": ("point", "gaussian", "hertz")[k % 3]}
+            for k in range(6)]
+    drag = [{"t": at[0], "obj": 0, "action": "start",
+             "space": _space(10).tolist()},
+            {"t": at[0], "obj": 2, "action": "start",
+             "space": _space(11).tolist()},
+            {"t": at[1], "obj": 0, "action": "update",
+             "space": _space(12).tolist()},
+            {"t": at[1], "obj": 0, "action": "arparam", "a": [0.6, 0.2],
+             "sigma": 0.003, "mu": 0.1},
+            {"t": at[2], "obj": 2, "action": "end"}]
+    timeline = {"duration_s": 0.1, "events": hits, "sustained": drag,
+                "seed": 2}
+    with _profiler():
+        ttl.bake(sess, timeline, blocks_per_dispatch=8)
+    s = P.spans()
+    sched = _named(s, "bake.schedule")
+    # the wave's hits write the five slot leaves; two starts space, AR
+    # history and activity; an update and a retune space, a, sigma, mu
+    # and the history; an end the activity alone
+    assert s["c0"][sched].tolist() == [6, 2, 2, 1]
+    assert s["c1"][sched].tolist() == [5, 3, 5, 1]
+    assert P.COUNTERS[P.SCHEDULE] == ("events", "writes")
+
+
 def _brute_live(sess, n_blocks):
     start = sess.sample_clock
     end = start + n_blocks * S

@@ -6,6 +6,7 @@ retune, more hits than slots, zero duration), "bake what you played" from
 the port's own engine, and the CLI. Nothing here asserts a wall-clock
 rate.
 """
+import contextlib
 import json
 import time
 import wave
@@ -28,6 +29,7 @@ from openpbso_tpu_torch.ops.coeffs import bank_from_material
 from openpbso_tpu_torch.ops.ffat import build_ffat
 from openpbso_tpu_torch.runtime.session import ModalSession
 from openpbso_tpu_torch.runtime.solver import SolverConfig
+from test_torch_batched_writes import assert_same_session
 
 S = 128
 MODES = 10
@@ -147,6 +149,26 @@ def test_bake_matches_jax(name, dberr):
         # every hit sounded: the last one rings in the final blocks
         last = int(round(timeline["events"][-1]["t"] * SAMPLE_RATE / S)) * S
         assert float(np.abs(t[last:]).max()) > 0
+
+
+@pytest.mark.parametrize("name", list(TIMELINES))
+def test_bake_batched_is_bitwise_the_calls_one_by_one(name):
+    """The bake's batched event writes against the same bake with every
+    event written at once: the audio, each state leaf and each host
+    mirror bitwise."""
+    timeline, kw = TIMELINES[name]
+    timeline = json.loads(json.dumps(timeline))
+    (_, batched), (_, one) = sessions(**kw), sessions(**kw)
+    one.batched_writes = contextlib.nullcontext
+    out = []
+    for sess in (one, batched):
+        if kw.get("ffat"):
+            sess.set_listener(np.array([0.7, 0.3, 0.2]))
+        out.append(ttl.bake(sess, timeline, blocks_per_dispatch=8))
+    assert out[0].dtype == out[1].dtype and np.array_equal(*out)
+    assert_same_session(one, batched)
+    if timeline["events"]:
+        assert batched.event_writes < one.event_writes
 
 
 def test_bake_schedules_events_quantized_and_validates_first():
