@@ -2147,17 +2147,16 @@ def scene_instances(dirs, compress=True):
 
 def build_scene(instances, compressed=None, **kw):
     """A Scene on the card (built without ``device=``); with
-    ``compressed`` its session's maps also carry the compressed texture."""
+    ``compressed`` (each model's compressed maps, by the model's id) its
+    maps also carry the compressed texture."""
     import torch
     from openpbso_tpu_torch.models import Scene
-    from openpbso_tpu_torch.ops.ffat import build_ffat_hetero
     t = time.perf_counter()
-    scene = Scene(instances, block_size=S, **kw)
     if compressed is not None:
-        scene.session.ffat = build_ffat_hetero(
-            [inst.model.ffat_maps for inst in scene.instances],
-            scene.bank.num_modes, compressed_maps=[
-                compressed[id(inst.model)] for inst in scene.instances])
+        models = list({id(inst.model): inst.model
+                       for inst in instances}.values())
+        kw["compressed_maps"] = [compressed[id(mdl)] for mdl in models]
+    scene = Scene(instances, block_size=S, **kw)
     torch.cuda.synchronize()
     check(scene.bank.device.type == "cuda" and not scene.bank.shared_tables,
           f"scene bank on {scene.bank.device}, shared tables "

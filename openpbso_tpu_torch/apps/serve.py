@@ -43,7 +43,10 @@ def parse_args(argv=None):
                    help="serve a multi-model scene: JSON with "
                         "{'instances': [{'meta': path, 'position': [x,y,z],"
                         " 'gain': g, 'pan': p}, ...], optional "
-                        "'listener_offsets' [[...]] or 'binaural': true}")
+                        "'listener_offsets' [[...]] or 'binaural': true, "
+                        "'itd': true (interaural time differences), "
+                        "'compressed': true (lookups read each model's "
+                        "uint8-compressed maps)}")
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     p.add_argument("--one-shot", action="store_true",
                    help="serve a single connection then exit")
@@ -107,8 +110,11 @@ def build_server(args):
         from ..io.meta import read_meta
         from ..models.modal_model import load_model
         from ..models.scene import Scene, SceneInstance
+        from ..ops.ffat_fit import compress_map
         with open(args.scene) as f:
             desc = _json.load(f)
+
+        compressed = bool(desc.get("compressed", False))
 
         def build_scene():
             cache = {}
@@ -134,12 +140,20 @@ def build_server(args):
                                      "scene's own listener_offsets/"
                                      "binaural rows")
                 offsets = [[0.0, 0.0, 0.0]] * int(args.num_listeners)
+            # the models' maps through the uint8 quantisation (no image
+            # codec), one dict a model in the order the scene meets them
+            comp = ([{k: compress_map(v, jpeg_quality=None)
+                      for k, v in mdl.ffat_maps.items()}
+                     for mdl in cache.values()] if compressed else None)
             sc = Scene(
                 insts, block_size=args.block, backend=args.backend,
                 binaural=binaural,
                 listener_offsets=offsets,
                 use_ffat=not args.no_transfer,
-                smooth_transfer=args.smooth_transfer, device=device)
+                smooth_transfer=args.smooth_transfer,
+                itd=bool(desc.get("itd", False)),
+                compressed_maps=comp, use_compressed=compressed,
+                device=device)
             sc.set_listener(np.asarray(
                 [float(v) for v in args.listener.split(",")]))
             return sc

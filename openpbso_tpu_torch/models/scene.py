@@ -47,6 +47,9 @@ class Scene:
                  mesh=None,
                  smooth_transfer: bool = False,
                  itd: bool = False,
+                 compressed_maps: list[dict] | None = None,
+                 use_compressed: bool = False,
+                 seed: int = 0,
                  dtype: torch.dtype | None = None,
                  device: torch.device | str | None = None):
         """``binaural`` renders each logical object to two output channels
@@ -70,6 +73,15 @@ class Scene:
         listener geometry on every move (complex transfer rows; exact for
         each narrowband mode). Needs shared-state listener rows; composes
         with ``smooth_transfer`` (the ramp moves both channels).
+
+        ``compressed_maps``: the second, compressed Psi texture of each
+        model (the reference's useCompressed set, modal_solver.h:84-98),
+        one map dict per model of ``models`` (the instances' distinct
+        models in order of first use), carried beside the raw texture;
+        ``use_compressed`` makes listener lookups read it from the start
+        (session.set_use_compressed toggles it later).
+
+        ``seed`` keys the session's sustained-contact noise.
 
         ``mesh`` (a parallel.sharding.Mesh) makes a multi-device scene:
         the same construction surface with a ShardedSession underneath,
@@ -102,6 +114,14 @@ class Scene:
             instances = [inst for inst in instances
                          for _ in range(self.num_listeners)]
         self.instances = instances
+        # the distinct models in order of first use: compressed_maps[k]
+        # belongs to models[k]
+        self.models = list({id(inst.model): inst.model
+                            for inst in instances}.values())
+        if (compressed_maps is not None
+                and len(compressed_maps) != len(self.models)):
+            raise ValueError(f"compressed_maps holds {len(compressed_maps)} "
+                             f"map dicts for {len(self.models)} models")
         o = len(instances)
         m_max = max(inst.model.num_modes_audible for inst in instances)
 
@@ -127,21 +147,28 @@ class Scene:
 
         ffat = None
         if use_ffat and any(inst.model.ffat_maps for inst in instances):
+            comp = None
+            if compressed_maps is not None:
+                of = {id(mdl): c for mdl, c in zip(self.models,
+                                                   compressed_maps)}
+                comp = [of[id(inst.model)] for inst in instances]
             if shared:
                 ffat = build_ffat(instances[0].model.ffat_maps,
                                   self.bank.num_modes, dtype=dtype,
-                                  device=device)
+                                  device=device,
+                                  compressed_maps=comp and comp[0])
             else:
                 ffat = build_ffat_hetero(
                     [inst.model.ffat_maps for inst in instances],
-                    self.bank.num_modes, dtype=dtype, device=device)
+                    self.bank.num_modes, dtype=dtype, device=device,
+                    compressed_maps=comp)
         # the per-instance float64 eigenvalues enable the span dispatches
         # (shared banks are detected from identical rows)
         session_kw = dict(
             ffat=ffat,
             config=SolverConfig(block_size=block_size, backend=backend,
                                 smooth_transfer=smooth_transfer),
-            num_slots=num_slots, dtype=dtype,
+            num_slots=num_slots, seed=seed, dtype=dtype,
             num_listeners=(self.num_listeners if self.shared_state else 1),
             lam64=lam)
         if mesh is not None:
@@ -172,6 +199,8 @@ class Scene:
         # the default binaural ear offsets (set_listener's ear_axis updates)
         ear = np.asarray((1.0, 0.0, 0.0)) * (self.ear_distance / 2)
         self._ear_offsets = np.stack([-ear, ear])
+        if use_compressed:
+            self.session.set_use_compressed(True)
         if itd:
             if not self.shared_state:
                 raise ValueError("itd needs shared_state multi-listener "

@@ -5,8 +5,9 @@ runtime telemetry is the audio buffer-health ring (SURVEY.md section 5
 'Tracing/profiling: none'). This package adds:
 
 - the **span log**: the program's own spans (the engine's dispatch, event
-  application, enqueue and copy wait; the session's span dispatches and
-  table builds; the bake and its scheduling), recorded while a
+  application, enqueue and copy wait; the session's span dispatches,
+  table builds, FFAT lookups and interaural phases; the bake and its
+  scheduling), recorded while a
   ``torch.profiler`` session records in the process and only then, on the
   clock the profiler stamps its events with (``time.time_ns``). Sites call
   :func:`begin` and :func:`end`; readers take :func:`spans` and
@@ -35,10 +36,13 @@ import torch.autograd.profiler as _flag
 
 # the spans the program records, by id; each site's counters, by name
 NAMES = ("engine.dispatch", "engine.apply", "engine.synth", "engine.copy",
-         "session.span", "session.tables", "bake", "bake.schedule")
-(DISPATCH, APPLY, SYNTH, COPY, SPAN, TABLES, BAKE, SCHEDULE) = range(8)
+         "session.span", "session.tables", "bake", "bake.schedule",
+         "session.lookup", "session.itd")
+(DISPATCH, APPLY, SYNTH, COPY, SPAN, TABLES, BAKE, SCHEDULE, LOOKUP,
+ ITD) = range(10)
 COUNTERS = {DISPATCH: ("blocks",), APPLY: ("events",), SYNTH: ("blocks",),
-            SPAN: ("K", "live"), SCHEDULE: ("events", "writes")}
+            SPAN: ("K", "live"), SCHEDULE: ("events", "writes"),
+            LOOKUP: ("L", "compressed"), ITD: ("L", "M")}
 
 # a ring of this many spans holds the set-up and a 30 s window of the
 # busiest stream several times over (~5 spans a 11.6 ms block)

@@ -454,13 +454,18 @@ class ModalSession:
                 * (SAMPLE_RATE / SOUND_SPEED))
 
     def set_listener_relative(self, pos: np.ndarray) -> None:
-        """set_listener in the session's native per-object frame."""
+        """set_listener in the session's native per-object frame: the
+        lookup is the span ``session.lookup`` (listener rows, compressed
+        texture read), the interaural phase ``session.itd`` (listener
+        rows, modes)."""
         rows = self._listener_rows(np.asarray(pos, np.float64))
         self._last_listener = np.asarray(pos, np.float64)
         if self.ffat is None or not self.use_transfer:
             return
+        tok = profiling.begin(profiling.LOOKUP)
         transfer = self._lookup(torch.as_tensor(
             np.ascontiguousarray(rows)).to(self._dtype).to(self.device))
+        profiling.end(tok, self.num_listeners, int(self.use_compressed))
         if self.config.smooth_transfer and self._xfade_from is None:
             # remember the outgoing rows (re and im: a complex row ramps
             # both); the next block ramps to the new one (repeated moves
@@ -472,6 +477,7 @@ class ModalSession:
             # phase e^{-i theta_m d} is a delay of d samples for a
             # narrowband mode (theta = omega_d h); the phase is formed in
             # host float64 and cast, and cos and sin run on the device
+            tok = profiling.begin(profiling.ITD)
             o, m = self.bank.num_objects, self.bank.num_modes
             theta = np.zeros((o, m))
             lam = np.broadcast_to(self._lam64, (o, self._lam64.shape[-1]))
@@ -481,6 +487,7 @@ class ModalSession:
                     self._dtype).to(self.device)
             self._install_transfer(transfer * torch.cos(phase),
                                    -transfer * torch.sin(phase))
+            profiling.end(tok, self.num_listeners, m)
             return
         # FFAT lookups are magnitude-only: a complex row's phase does not
         # survive the move

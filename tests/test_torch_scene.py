@@ -10,6 +10,7 @@ restore bitwise (tests/test_scene.py, tests/test_multilistener.py:134-309).
 The last tests run a binaural ITD Scene per block, by span and through the
 streaming engine with a DopplerPostMix, each against the JAX package.
 """
+import os
 import time
 
 import jax.numpy as jnp
@@ -33,6 +34,8 @@ from openpbso_tpu_torch.runtime.audio import RawCollectorSink
 from openpbso_tpu_torch.runtime.checkpoint import load_state, save_state
 from openpbso_tpu_torch.runtime.engine import StreamingEngine
 from openpbso_tpu_torch.utils.synth import synth_model_dir
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -282,6 +285,78 @@ def test_refusals(models):
                shared_state=False, device="cpu")
     with pytest.raises(ValueError, match="at least one"):
         TScene([], device="cpu")
+
+
+def _compressed(model):
+    """A model's maps through the uint8 quantisation (no image codec)."""
+    from openpbso_tpu_torch.ops.ffat_fit import compress_map
+    return {k: compress_map(v, jpeg_quality=None)
+            for k, v in model.ffat_maps.items()}
+
+
+def test_compressed_maps_through_the_constructor(models):
+    """A Scene given each model's compressed maps and use_compressed reads
+    bitwise the rows of a session whose maps were built with the same
+    compressed maps (no session attribute set from outside); the raw
+    texture gives other rows, and a count of map dicts that is not the
+    models' is refused."""
+    from openpbso_tpu_torch.ops.ffat import build_ffat_hetero
+    from openpbso_tpu_torch.runtime.session import ModalSession
+    ma, mb = models["t"]
+    comp = [_compressed(ma), _compressed(mb)]
+    insts = [TInstance(models["t"][m], np.asarray(p, np.float64), g, pan)
+             for m, p, g, pan in THREE]
+    ts = TScene(insts, block_size=S, binaural=True, compressed_maps=comp,
+                use_compressed=True, device="cpu")
+    assert ts.models == [ma, mb] and ts.session.use_compressed
+    world = np.asarray([1.2, 0.5, 0.3])
+    ts.set_listener(world)
+    ffat = build_ffat_hetero([i.model.ffat_maps for i in insts],
+                             ts.bank.num_modes, device="cpu",
+                             compressed_maps=[comp[0], comp[1], comp[0]])
+    sess = ModalSession(ts.bank, ffat, num_listeners=2)
+    sess.set_use_compressed(True)
+    sess.set_listener_relative(ts._relative_rows(world))
+    assert torch.equal(ts.session.state.transfer, sess.state.transfer)
+    sess.set_use_compressed(False)
+    assert not torch.equal(ts.session.state.transfer, sess.state.transfer)
+    with pytest.raises(ValueError, match="2 models"):
+        TScene(insts, compressed_maps=comp[:1], device="cpu")
+
+
+def test_served_scene_json_builds_the_binaural_itd_compressed_scene(
+        monkeypatch, tmp_path):
+    """apps/serve.py's scene JSON with "binaural", "itd" and "compressed"
+    builds the Scene that the constructor builds from the same model and
+    its uint8-compressed maps: its rows, both parts, bitwise."""
+    import json
+
+    from openpbso_tpu_torch.apps import serve
+    from openpbso_tpu_torch.io.meta import read_meta
+    monkeypatch.chdir(ROOT)
+    with open("assets/demo/scene.json") as fh:
+        desc = json.load(fh)
+    desc.update(binaural=True, itd=True, compressed=True)
+    path = tmp_path / "scene.json"
+    path.write_text(json.dumps(desc))
+    srv = serve.build_server(serve.parse_args(
+        ["--scene", str(path), "--port", "0", "--block", "256",
+         "--device", "cpu"]))
+    try:
+        got = srv._scene.session
+    finally:
+        srv.close()
+    assert got.auto_itd and got.use_compressed and got.num_listeners == 2
+    model = t_load(read_meta(desc["instances"][0]["meta"]))
+    want = TScene([TInstance(model, np.asarray(i["position"], np.float64),
+                             i["gain"], i["pan"]) for i in desc["instances"]],
+                  block_size=256, binaural=True, itd=True,
+                  compressed_maps=[_compressed(model)], use_compressed=True,
+                  device="cpu")
+    want.set_listener(np.asarray([1.0, 0.5, 0.5]))
+    assert got.state.transfer_im is not None
+    assert torch.equal(got.state.transfer, want.session.state.transfer)
+    assert torch.equal(got.state.transfer_im, want.session.state.transfer_im)
 
 
 def test_checkpoint_roundtrip_and_shape_mismatch(models, tmp_path):

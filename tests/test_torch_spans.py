@@ -15,13 +15,16 @@ from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile, record_function
 
 from openpbso_tpu_torch.apps import render_timeline as ttl
+from openpbso_tpu_torch.models import ModalSoundModel, Scene, SceneInstance
 from openpbso_tpu_torch.ops.coeffs import bank_from_material, lambda_from_modes
+from openpbso_tpu_torch.ops.ffat_fit import compress_map
 from openpbso_tpu_torch.runtime import profiling as P
 from openpbso_tpu_torch.runtime.audio import RawCollectorSink
 from openpbso_tpu_torch.runtime.engine import StreamingEngine
 from openpbso_tpu_torch.runtime.session import ModalSession
 from openpbso_tpu_torch.runtime.solver import SolverConfig
-from openpbso_tpu_torch.utils.synth import CERAMIC, synth_mode_data
+from openpbso_tpu_torch.utils.synth import (CERAMIC, synth_fatcube,
+                                             synth_mode_data)
 
 S = 128
 MODES = 12
@@ -403,3 +406,63 @@ def test_threads_racing_lose_no_span_and_cross_no_parent():
     roots = _named(s, "engine.dispatch")
     assert sorted(s["trace"][roots].tolist()) == list(
         range(n_threads * n_spans))
+
+
+def _scene(**kw):
+    """Two instances of a small model with FFAT maps, on the CPU; with
+    ``compressed`` its compressed maps too, read from the start."""
+    md = synth_mode_data(MODES, 4, seed=5)
+    freqs = md.frequencies_hz(CERAMIC.density)
+    maps = {i: synth_fatcube(i, float(freqs[i]), n=4) for i in range(MODES)}
+    model = ModalSoundModel("m", np.zeros((4, 3)), np.zeros((0, 3), int),
+                            np.tile([0.0, 0.0, 1.0], (4, 1)), CERAMIC, md,
+                            MODES, maps)
+    if kw.pop("compressed", False):
+        kw.update(compressed_maps=[{i: compress_map(m) for i, m in
+                                    maps.items()}], use_compressed=True)
+    return Scene([SceneInstance(model, np.zeros(3)),
+                  SceneInstance(model, np.asarray([0.6, 0.0, 0.0]))],
+                 block_size=S, backend="blocked", device="cpu", **kw)
+
+
+def test_a_binaural_move_records_its_lookup_and_phase_inside_apply():
+    """A head move put to the engine on a binaural ITD scene reading the
+    compressed maps: one session.lookup (L = 2, compressed) and one
+    session.itd (L = 2, the bank's M modes) inside engine.apply (the engine's warmup
+    takes its own moves, outside any dispatch)."""
+    scene = _scene(binaural=True, itd=True, smooth_transfer=True,
+                   compressed=True)
+    engine = StreamingEngine(scene.session, RawCollectorSink())
+    with _profiler():
+        engine.set_listener(np.asarray([1.1, 0.4, 0.7]))
+        engine.start()
+        deadline = time.time() + 120
+        while engine._blocks_done < 2 and time.time() < deadline:
+            time.sleep(0.01)
+        engine.stop()
+    assert engine.error is None
+    s = P.spans()
+    pos = {int(i): k for k, i in enumerate(s["index"])}
+    in_apply = [k for k in range(s["index"].size) if s["parent"][k] >= 0
+                and s["name"][pos[int(s["parent"][k])]] == P.APPLY]
+    for name, counters in (("session.lookup", [2, 1]),
+                           ("session.itd", [2, scene.bank.num_modes])):
+        mine = [k for k in in_apply if k in _named(s, name)]
+        assert len(mine) == 1
+        assert [s["c0"][mine[0]], s["c1"][mine[0]]] == counters
+    assert scene.session.state.transfer_im is not None
+
+
+def test_a_move_records_nothing_without_a_profiler_and_mono_no_phase():
+    """Outside a profiler a binaural ITD move records nothing; a mono
+    move on the raw maps records its lookup (L = 1, raw) and no phase."""
+    _scene(binaural=True, itd=True).set_listener(np.asarray([1.0, 0.5, 0.2]))
+    assert P.spans()["index"].size == 0
+    mono = _scene()
+    with _profiler():
+        mono.set_listener(np.asarray([1.0, 0.5, 0.2]))
+    s = P.spans()
+    lookup = _named(s, "session.lookup")
+    assert lookup.size == 1
+    assert [s["c0"][lookup[0]], s["c1"][lookup[0]]] == [1, 0]
+    assert _named(s, "session.itd").size == 0
