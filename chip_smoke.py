@@ -181,25 +181,11 @@ Phases, in order; any failure raises and the script exits non-zero:
    launches counted), 2 hits and 0.5 s; one material against the blocked
    form (<= -90 dB); features_matrix of every clip (seconds printed); the
    study where sklearn is installed, else its error printed;
-12. the span forms and the native decoder, reusing phase 5's banks and
-   tables and phase 8's model directories. Phase 5's busy dispatch (a
-   gaussian on every object, the one-slot bucket) and a ring-down from
-   its start state run through each form against the flat single-level
-   chunked form (mix and state <= -90 dB), every chunk_scan call of a
-   form bitwise its twin on its own inputs, the busy dispatch timed
-   synced A B B A against flat, with peak memory and the kernels'
-   launches: (a) shared 256x1024 at 512 blocks (N = 262144): the default
-   tables (superchunk X = 512, G = 32), factored (R = 512, X = 512) and
-   full ([1024, 262145]); (b) hetero 256x1024 at 64 blocks (X = 64):
-   factored and the opt-in superchunk (passes A and C and the group scan
-   through chunk_scan); (c) a (2, 2) mesh of cuda:0 cells: two 64-block
-   spans of the shared bank (superchunk tables split on the mode axis)
-   against the unsharded session (<= -90 dB); (d) the native library
-   (g++, built into openpbso_tpu_torch/_build/): every .fatcube of phase
-   8's directories decoded natively with no fallback, bitwise the Python
-   codec's; the bulk load timed A B B A against the codec's, load_model
-   once, and 10^4 [512, 2] blocks through NativeSpscRing between two
-   threads, whole and in order;
+12. the native decoder (12d) on phase 8's model directories: the native
+   library (g++, built into openpbso_tpu_torch/_build/) decodes every
+   .fatcube with no fallback, bitwise the Python codec's; the bulk load
+   timed A B B A against the codec's, load_model once, and 10^4 [512, 2]
+   blocks through NativeSpscRing between two threads, whole and in order;
 13. the span's mode contractions: span_inject and span_reduce (g and hom)
    against their twins (<= -110 dB, bitwise repeatable) and timed (CUDA
    events over one chain of 100 calls, the profiler's device time, retaken
@@ -259,8 +245,7 @@ ENGINE_DRAGGED = 4           # objects dragged live in 7d
 QNORM_EVERY = 8
 PACED_SECONDS = 3.0          # phase 7e
 CHECKPOINT_BLOCKS = 16       # phase 7f
-FORM_RUNS = 5                # phase 12: synced dispatches a timed turn
-LONG_SPAN_BLOCKS = 64        # 12b, 12c: 64 chunks of 512 samples
+FORM_RUNS = 5                # phase 13: synced dispatches a timed turn
 SCENE_MODELS = 4             # phase 8: model directories the O instances
 #                              cycle through (a heterogeneous bank)
 SCENE_SPACING = 0.6          # meters between grid neighbours
@@ -795,7 +780,7 @@ def span_kernel_case(name, bank, lam64, n_blocks, seed):
     out["span_ms"] = span_ms
     out["span_rtf"] = n_blocks * S / SAMPLE_RATE / (span_ms / 1e3)
     print("span kernel case:", json.dumps(out), flush=True)
-    out["tables"] = tables      # phase 12b shares the hetero baby table
+    out["tables"] = tables      # phase 13 shares the hetero baby table
     return out
 
 
@@ -4415,49 +4400,6 @@ def busy_state(bank, seed):
     return state
 
 
-@contextlib.contextmanager
-def record_scans():
-    """While open, a host copy of the arguments of every chunk_scan call
-    the span module makes (the two-level scan's passes included; on the
-    host, so that the copies add nothing to the card's peak memory)."""
-    import torch
-    from openpbso_tpu_torch.ops import span as span_mod
-    calls = []
-    original = span_mod.chunk_scan
-
-    def recording(*args):
-        calls.append([a.to("cpu", copy=True) if isinstance(a, torch.Tensor)
-                      else a for a in args])
-        return original(*args)
-    span_mod.chunk_scan = recording
-    try:
-        yield calls
-    finally:
-        span_mod.chunk_scan = original
-
-
-def form_dispatch(bank, tables, state, gains, n_blocks) -> dict:
-    """The busy dispatch through ``tables``, and a ring-down span from the
-    same start state (so that it holds decay_span alone, not the busy
-    dispatch's difference carried on); the kernels' launches of the two
-    and the peak memory above what was allocated before them."""
-    import torch
-    from openpbso_tpu_torch.runtime.solver import decay_span_step, step_span
-    torch.cuda.synchronize()
-    base = torch.cuda.memory_allocated()
-    torch.cuda.reset_peak_memory_stats()
-    reset_launches()
-    st, mix = step_span(state, bank, tables, gains, n_blocks=n_blocks,
-                        block_size=S, num_slots=1)
-    dst, dmix = decay_span_step(state, bank, tables, gains,
-                                n_blocks=n_blocks, block_size=S)
-    torch.cuda.synchronize()
-    return {"launches": read_launches(),
-            "peak_gb": (torch.cuda.max_memory_allocated() - base) / 1e9,
-            "out": [t.cpu().numpy() for t in (mix, st.z_re, st.z_im, dmix,
-                                              dst.z_re, dst.z_im)]}
-
-
 def synced_ms(fn, runs=FORM_RUNS) -> float:
     """Median host ms of a synced call, after one warm call."""
     import torch
@@ -4470,211 +4412,6 @@ def synced_ms(fn, runs=FORM_RUNS) -> float:
         if i:
             times.append(1e3 * (time.perf_counter() - t))
     return statistics.median(times)
-
-
-def phase_span_forms(label, bank, n_blocks, flat, forms, seed) -> tuple:
-    """12a/12b: phase 5's busy dispatch and a ring-down through each form
-    of ``forms`` (name -> (tables, the kernels' launches of the two
-    dispatches)) against the flat single-level chunked form ``flat``:
-    mix and state <= -90 dB, every chunk_scan call of the form bitwise its
-    twin on its own inputs, the busy dispatch timed synced A B B A
-    against flat, peak memory. Returns (summary, launches)."""
-    import torch
-    from openpbso_tpu_torch.config import SAMPLE_RATE
-    from openpbso_tpu_torch.ops import chunk_scan as k1
-    from openpbso_tpu_torch.runtime.solver import default_gains, step_span
-    state = busy_state(bank, seed)
-    gains = default_gains(O, device=bank.device)
-    names = ("mix", "z_re", "z_im", "decay mix", "decay z_re",
-             "decay z_im")
-    ref = form_dispatch(bank, flat, state, gains, n_blocks)
-    want = span_want(1, 1)
-    check(ref["launches"] == want,
-          f"12 {label} flat: launches {ref['launches']} != {want}")
-    check(bool(np.isfinite(ref["out"][0]).all())
-          and float(np.abs(ref["out"][0]).max()) > 0,
-          f"12 {label} flat: mix not finite or silent")
-    launches = dict(ref["launches"])
-    out = {"n_blocks": n_blocks, "N": n_blocks * S,
-           "flat": {"n_chunks": flat.n_chunks, "chunk": flat.chunk,
-                    "peak_gb": ref["peak_gb"]}}
-
-    def busy(tables):
-        return lambda: step_span(state, bank, tables, gains,
-                                 n_blocks=n_blocks, block_size=S,
-                                 num_slots=1)[1]
-    for name, (tables, want) in forms.items():
-        with record_scans() as scans:
-            got = form_dispatch(bank, tables, state, gains, n_blocks)
-        want = dict(dict.fromkeys(KERNELS, 0), **want)
-        check(got["launches"] == want,
-              f"12 {label} {name}: launches {got['launches']} != {want}")
-        check(len(scans) == want["chunk_scan"],
-              f"12 {label} {name}: {len(scans)} chunk_scan calls")
-        for k in KERNELS:
-            launches[k] += got["launches"][k]
-        dbs = {n: db_error(g, r) for n, g, r in zip(names, got["out"],
-                                                    ref["out"])}
-        check(max(dbs.values()) <= -90.0,
-              f"12 {label} {name}: {dbs} dB against flat")
-        scan_shapes = []
-        for args in scans:
-            args = [a.to(bank.device) if isinstance(a, torch.Tensor) else a
-                    for a in args]
-            k, p = k1.chunk_scan(*args), k1.chunk_scan_reference(*args)
-            check(all(torch.equal(a, b) for a, b in zip(k, p)),
-                  f"12 {label} {name}: chunk_scan not bitwise its twin on "
-                  f"the inputs of {list(args[0].shape)} x {args[4]}")
-            scan_shapes.append([list(args[0].shape), args[4],
-                                args[5] is None])
-        del scans
-        a1, b1, b2, a2 = (synced_ms(busy(t)) for t in (flat, tables, tables,
-                                                       flat))
-        out[name] = {"db_vs_flat": dbs, "peak_gb": got["peak_gb"],
-                     "launches": got["launches"],
-                     "chunk_scan_calls_bitwise": scan_shapes,
-                     "flat_ms": [a1, a2], "ms": [b1, b2],
-                     "rtf": n_blocks * S / SAMPLE_RATE / (
-                         1e-3 * statistics.mean([b1, b2]))}
-        print(f"span form {label} {name}: {json.dumps(out[name])}",
-              flush=True)
-    return out, launches
-
-
-def phase_forms_shared(bank, lam64, seed) -> tuple:
-    """12a: shared 256x1024 at 512 blocks (N = 262144): the default
-    chunked tables (superchunk X = 512, G = 32), factored (R = 512, X =
-    512) and full ([M, N+1]) against flat."""
-    import dataclasses
-    import torch
-    from openpbso_tpu_torch.ops.span import build_span_tables, with_planes
-    n_blocks, m, dev = SPAN_CASES[0][1], bank.num_modes, bank.device
-    builds = {}
-    tables = {}
-    for form in ("auto", "factored", "full"):
-        t = time.perf_counter()
-        tables[form] = build_span_tables(lam64, n_blocks * S, num_modes=m,
-                                         device=dev, form=form)
-        builds[form] = time.perf_counter() - t
-    default = with_planes(tables["auto"])   # as a session's tables
-    check((default.chunk, default.n_chunks, default.superchunk)
-          == (512, 512, 32), "12a: the default tables are not C=512 X=512 "
-          f"G=32 ({default.chunk}, {default.n_chunks}, "
-          f"{default.superchunk})")
-    check((tables["factored"].radix, tables["factored"].big_steps)
-          == (512, 512) and tables["full"].p_re.shape == (m, n_blocks * S
-                                                           + 1),
-          "12a: factored or full tables of another shape")
-    flat = dataclasses.replace(default, s_re=None, s_im=None)
-    scan2 = span_want(1, 1)
-    out, launches = phase_span_forms("shared", bank, n_blocks, flat, {
-        "superchunk": (default, scan2), "factored": (tables["factored"], {}),
-        "full": (tables["full"], {})}, seed)
-    out["table_build_s"] = builds
-    del tables, default, flat
-    torch.cuda.empty_cache()
-    return out, launches
-
-
-def phase_forms_hetero(bank, lam64, baby, seed) -> tuple:
-    """12b: hetero 256x1024 at 64 blocks (N = 32768, C = R = 512, X = 64):
-    factored and the opt-in superchunk tables (G = 32: passes A and C and
-    the group scan through chunk_scan) against flat. ``baby``: phase 5's
-    hetero chunk tables (C = 512), whose baby table every form here
-    shares; the superchunk and giant powers are built alone and held
-    bitwise against build_span_tables on the first objects."""
-    import dataclasses
-    import torch
-    from openpbso_tpu_torch.ops.span import (ChunkSpanTables, SpanTables,
-                                             build_span_tables, power_rows)
-    n_blocks, m, dev = LONG_SPAN_BLOCKS, bank.num_modes, bank.device
-    c = baby.chunk
-    x = n_blocks * S // c
-    check((c, x) == (512, 64), f"12b: C={c} X={x}")
-    t = time.perf_counter()
-    lam = np.pad(lam64, ((0, 0), (0, m - lam64.shape[1])))
-    s_re, s_im = power_rows(lam, np.arange(33) * c, torch.float32, dev)
-    a_re, a_im = power_rows(lam, np.arange(x + 1) * c, torch.float32, dev)
-    build_s = time.perf_counter() - t
-    few = 4
-    for form, kw, rows in (
-            ("chunked", dict(hetero_superchunk=True), (s_re, s_im)),
-            ("factored", {}, (a_re, a_im))):
-        ref = build_span_tables(lam64[:few], n_blocks * S, radix=c,
-                                num_modes=m, device=dev, form=form,
-                                shared=False, **kw)
-        want = (ref.s_re, ref.s_im) if form == "chunked" else (ref.a_re,
-                                                               ref.a_im)
-        check(all(torch.equal(r[:few], w) for r, w in zip(rows, want))
-              and torch.equal(baby.b_re[:few], ref.b_re),
-              f"12b: the {form} powers differ from build_span_tables'")
-    flat = dataclasses.replace(baby, n_chunks=x)
-    superchunk = ChunkSpanTables(b_re=baby.b_re, b_im=baby.b_im,
-                                 n_chunks=x, s_re=s_re, s_im=s_im,
-                                 planes=baby.planes)
-    factored = SpanTables(a_re=a_re, a_im=a_im, b_re=baby.b_re,
-                          b_im=baby.b_im)
-    check(superchunk.superchunk == 32 and factored.span == n_blocks * S,
-          "12b: table shapes")
-    out, launches = phase_span_forms("hetero", bank, n_blocks, flat, {
-        "superchunk": (superchunk, dict(span_want(1, 1), chunk_scan=4)),
-        "factored": (factored, {})}, seed)
-    out["powers_build_s"] = build_s
-    del superchunk, factored, flat, s_re, s_im, a_re, a_im
-    torch.cuda.empty_cache()
-    return out, launches
-
-
-def phase_forms_mesh(scene, shared, shared_lam) -> tuple:
-    """12c: a shared span of 64 chunks through build_span_tables' default
-    superchunk tables (put in the sessions' caches: a session builds the
-    flat form), on a (2, 2) mesh of cuda:0 cells (the powers split on the
-    mode axis) against the unsharded session, <= -90 dB: two dispatches
-    of 64 blocks."""
-    from openpbso_tpu_torch.ops.span import build_span_tables
-    from openpbso_tpu_torch.parallel import sharding
-    rng = np.random.default_rng(12)
-    hits = hit_script(rng, O, M, S)
-    n_dispatch = 2
-    ref_sess = new_session(shared, None, scene["listeners"], hits,
-                           "blocked", lam64=shared_lam)
-    ref_sess._span_cache[512] = build_span_tables(
-        shared_lam, LONG_SPAN_BLOCKS * S, num_modes=shared.num_modes,
-        device=shared.device)
-    reset_launches()
-    ref = ref_sess.render_multi(n_dispatch * LONG_SPAN_BLOCKS,
-                                blocks_per_dispatch=LONG_SPAN_BLOCKS)
-    ref_counts = read_launches()
-    tables = ref_sess.span_tables_for(LONG_SPAN_BLOCKS)
-    check(tables.superchunk == 32 and ref_counts["chunk_scan"] == n_dispatch,
-          f"12c: unsharded G={tables.superchunk}, launches {ref_counts}")
-    sess = mesh_session(shared, (2, 2), lam64=shared_lam,
-                        tables_from=ref_sess, one_card=True)
-    sess.set_listener(scene["listeners"])
-    for h in hits:
-        sess.hit(h["obj"], h["space"], kind=h["kind"], width_us=h["width_us"],
-                 amp=h["amp"], when=h["when"])
-    reset_launches()
-    sharding.REDUCTIONS = 0
-    mix = sess.render_multi(n_dispatch * LONG_SPAN_BLOCKS,
-                            blocks_per_dispatch=LONG_SPAN_BLOCKS)
-    counts = read_launches()
-    want = {k: 4 * ref_counts[k] for k in KERNELS}
-    check(counts == want, f"12c: launches {counts} != {want}")
-    check(sharding.REDUCTIONS == n_dispatch,
-          f"12c: {sharding.REDUCTIONS} reductions")
-    (key, grid), = sess._sharded_tables.items()
-    check(key == 512 and tuple(grid[1][1].s_re.shape)
-          == (1, 33, shared.num_modes // 2),
-          f"12c: sharded tables {key} {tuple(grid[1][1].s_re.shape)}")
-    db = db_error(mix, ref)
-    check(db <= -90.0 and float(np.abs(ref).max()) > 0,
-          f"12c: {db} dB against unsharded")
-    out = {"db_vs_unsharded": db, "launches": counts,
-           "reductions": n_dispatch, "chunk": key,
-           "superchunk": grid[1][1].superchunk}
-    print("span forms mesh:", json.dumps(out), flush=True)
-    return out, counts
 
 
 def phase_native(dirs, mix) -> dict:
@@ -4756,26 +4493,6 @@ def phase_native(dirs, mix) -> dict:
            "load_model_s": load_s, "ring_blocks": n, "ring_s": ring_s}
     print("native:", json.dumps(out), flush=True)
     return out
-
-
-def phase_span_forms_all(scene, hetero, modes, shared, shared_lam, baby,
-                         dirs, seed) -> dict:
-    """Phase 12; returns its launches per kernel."""
-    import torch
-    launches = dict.fromkeys(KERNELS, 0)
-    shared_out, counts_a = phase_forms_shared(shared, shared_lam, seed)
-    hetero_out, counts_b = phase_forms_hetero(hetero, modes, baby, seed + 1)
-    print("span forms tables:", json.dumps({
-        "shared_build_s": shared_out["table_build_s"],
-        "hetero_powers_build_s": hetero_out["powers_build_s"]}), flush=True)
-    _, counts_c = phase_forms_mesh(scene, shared, shared_lam)
-    for counts in (counts_a, counts_b, counts_c):
-        for k in counts:
-            launches[k] += counts[k]
-    torch.cuda.empty_cache()
-    phase_native(dirs, scene["mix"])
-    print("span forms launches:", json.dumps(launches), flush=True)
-    return launches
 
 
 def contraction_inputs(tables, k, nl, cplx, seed,
@@ -5140,9 +4857,7 @@ def run_phases(args, model_pool, model_futures) -> int:
     torch.cuda.empty_cache()
     hetero_tables = span_cases["hetero"].pop("tables")
     with phase_clock("12", seconds):
-        forms_launches = phase_span_forms_all(
-            per_block, hetero, modes[0], shared, shared_lam, hetero_tables,
-            model_dirs, args.seed + 12)
+        phase_native(model_dirs, per_block["mix"])
     torch.cuda.empty_cache()
     with phase_clock("13", seconds):
         contractions = phase_contractions(
@@ -5157,8 +4872,8 @@ def run_phases(args, model_pool, model_futures) -> int:
     # launches: each kernel's count on its render's path (phases 4, 5b,
     # 6c) plus the engine streams' (7d), the spatial path's (8b, 8c, 8e,
     # 8f), the served path's (9a-9b's streams, 9c's bakes), the meshes'
-    # (10a-10e's sharded runs), the dataset's (11) and the span forms'
-    # (12a-12c's dispatches), each read around its own run
+    # (10a-10e's sharded runs) and the dataset's (11), each read around
+    # its own run
     kernels = [dict(name="fused_block", launches=per_block["launches"],
                     max_abs_err=prod["max_abs_err"], ms=prod["kernel_ms"],
                     device_ms=prod["device_ms"], plain_ms=prod["plain_ms"],
@@ -5184,8 +4899,7 @@ def run_phases(args, model_pool, model_futures) -> int:
                           + spatial_launches[k["name"]]
                           + served_launches[k["name"]]
                           + mesh_launches[k["name"]]
-                          + dataset_launches[k["name"]]
-                          + forms_launches[k["name"]])
+                          + dataset_launches[k["name"]])
         k.update(route="cuda", source=KERNELS[k["name"]][0],
                  replaces=KERNELS[k["name"]][1],
                  bound_ms=bounds[k["name"]]["bound_ms"],

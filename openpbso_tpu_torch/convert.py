@@ -16,7 +16,7 @@ from .device import resolve_device
 from .ops.coeffs import ModalBank
 from .ops.ffat import DeviceFFAT, FFATMaps
 from .ops.forces import ForceSlots, SustainedState
-from .ops.span import ChunkSpanTables, FullSpanTables, SpanTables
+from .ops.span import ChunkSpanTables
 from .runtime.state import SolverState
 
 
@@ -63,21 +63,17 @@ def ffat_from_numpy(src, device=None) -> FFATMaps:
 
 
 def span_tables_from_numpy(src, device=None):
-    """JAX span tables of any form as the port's: ``ChunkSpanTables`` with
-    their superchunk powers (``s_re``/``s_im``, None when absent),
-    ``SpanTables`` and ``FullSpanTables``, told apart by their fields.
-    Chunk tables come without their SpanPlanes: those are made where the
-    tables are used (ops/span.py::with_planes, a session's
+    """JAX chunked span tables as the port's flat ``ChunkSpanTables``: the
+    baby table and chunk count, with any superchunk powers of the JAX
+    package's two-level scan dropped (the flat scan runs the same span to
+    float32 rounding). The JAX package's factored and full tables raise
+    ValueError. The tables come without their SpanPlanes: those are made
+    where the tables are used (ops/span.py::with_planes, a session's
     span_tables_for), from the tables on that device."""
     device = resolve_device(device)
-    if hasattr(src, "p_re"):
-        return FullSpanTables(p_re=_t(src.p_re, device),
-                              p_im=_t(src.p_im, device))
-    if hasattr(src, "a_re"):
-        return SpanTables(**{n: _t(getattr(src, n), device)
-                             for n in ("a_re", "a_im", "b_re", "b_im")})
+    if not hasattr(src, "n_chunks"):
+        raise ValueError("the port takes only the chunked span form "
+                         "(ChunkSpanTables), not factored or full tables")
     return ChunkSpanTables(b_re=_t(src.b_re, device),
                            b_im=_t(src.b_im, device),
-                           n_chunks=int(src.n_chunks),
-                           s_re=_t(src.s_re, device),
-                           s_im=_t(src.s_im, device))
+                           n_chunks=int(src.n_chunks))

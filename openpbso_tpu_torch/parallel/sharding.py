@@ -40,8 +40,7 @@ from ..config import DEFAULT_BLOCK
 from ..ops.coeffs import ModalBank
 from ..ops.forces import ForceSlots, SustainedState
 from ..ops.integrator import decay_block_blocked
-from ..ops.span import (ChunkSpanTables, FullSpanTables, SpanPlanes,
-                        SpanTables)
+from ..ops.span import ChunkSpanTables, SpanPlanes
 from ..runtime.solver import (_mixdown, _mixdown_span, advance_block,
                               step_span_sound)
 from ..runtime.state import SolverState
@@ -134,25 +133,18 @@ def bank_specs(bank: ModalBank) -> ModalBank:
                      pow_re=table, pow_im=table)
 
 
-def span_table_specs(tables):
+def span_table_specs(tables: ChunkSpanTables) -> ChunkSpanTables:
     """Specs of ops.span tables: the mode axis splits, the power axis
-    replicates, the object axis follows the bank's layout. The full
-    table ([M, N+1]) splits its mode axis 0. The superchunk powers of
-    chunk tables split like the baby table (the JAX package's specs leave
-    them out, and its shard_span_tables raises on them); so do the
-    tables' SpanPlanes, so that each shard carries its own."""
-    if isinstance(tables, FullSpanTables):
-        return FullSpanTables(p_re=(None, 0), p_im=(None, 0))
+    replicates, the object axis follows the bank's layout. The tables'
+    SpanPlanes split likewise, so that each shard carries its own."""
     spec = (None, 2) if tables.shared else (0, 2)
-    if isinstance(tables, SpanTables):
-        return SpanTables(a_re=spec, a_im=spec, b_re=spec, b_im=spec)
     # the planes split on their mode axis: 2 of the lo planes, 1 of the
     # reversed copy [Og, M, C]
     bt = (None, 1) if tables.shared else (0, 1)
     planes = SpanPlanes(lo_re=spec, lo_im=spec, bt_re=bt, bt_im=bt,
                         bt_lo_re=bt, bt_lo_im=bt)
     return ChunkSpanTables(b_re=spec, b_im=spec, n_chunks=None,
-                           s_re=spec, s_im=spec, planes=planes)
+                           planes=planes)
 
 
 def _sound_spec(sound: torch.Tensor) -> tuple:

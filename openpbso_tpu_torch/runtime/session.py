@@ -49,8 +49,7 @@ from ..ops.forces import (FORCE_GAUSSIAN, FORCE_HERTZ, FORCE_POINT,
                           ar_impulse_g, ar_stability_radius, slot_duration,
                           span_group)
 from ..ops.integrator import resolve_backend_name
-from ..ops.span import (ChunkSpanTables, build_span_tables, choose_radix,
-                        with_planes)
+from ..ops.span import build_span_tables, choose_radix, with_planes
 from ..ops.integrator import decay_block_blocked
 from . import profiling
 from .solver import (SolverConfig, decay_block, decay_span_step,
@@ -619,35 +618,24 @@ class ModalSession:
         on the chunk size, so spans of different lengths with one chunk
         size (a render's remainder dispatch) share one cached build.
 
-        The tables are flat (no superchunk powers), where the JAX session
-        takes build_span_tables' default and so the two-level scan on
-        shared spans of 64 or more chunks: on the H100 the two-level form
-        measured slower than the single-level chunk_scan at shared 256x1024
-        and 512 blocks (chip_smoke.py phase 12a, PERF.md), and the two
-        agree to float32 rounding (tests/test_torch_span.py). Tables put in
-        the cache by hand (superchunk ones included) are used as they
-        are.
-
-        Cached chunked tables carry their SpanPlanes (ops/span.py::
-        with_planes), the layout the contraction kernels read, made once
-        per cached table: tables put in the cache without them get them at
-        their first use here. A build, of either, is the span
+        Cached tables carry their SpanPlanes (ops/span.py::with_planes),
+        the layout the contraction kernels read, made once per cached
+        table: tables put in the cache without them get them at their
+        first use here. A build, of either, is the span
         ``session.tables``."""
         if self._lam64 is None:
             return None
         span = n_blocks * self.config.block_size
         chunk = choose_radix(span)
         tables = self._span_cache.get(chunk)
-        if tables is None or (isinstance(tables, ChunkSpanTables)
-                              and tables.planes is None):
+        if tables is None or tables.planes is None:
             tok = profiling.begin(profiling.TABLES)
             if tables is None:
                 tables = build_span_tables(
                     self._lam64, chunk, radix=chunk,
                     num_modes=self.bank.num_modes, dtype=self._dtype,
                     device=self.device)
-            if isinstance(tables, ChunkSpanTables) and tables.planes is None:
-                tables = with_planes(tables)
+            tables = with_planes(tables)
             self._span_cache[chunk] = tables
             profiling.end(tok)
         return dataclasses.replace(tables, n_chunks=span // chunk)

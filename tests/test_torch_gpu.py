@@ -308,58 +308,6 @@ def test_render_multi_spans_through_both_kernels(cuda):
     assert _db(mix, sessions["blocked"].render(10)) <= -90
 
 
-@pytest.mark.parametrize("shared,form,scans", [
-    (True, "superchunk", 2),          # the default tables, G = 32
-    (True, "factored", 0),
-    (True, "full", 0),
-    (False, "superchunk", 4),         # opt-in: passes A and C, group scan
-    (False, "factored", 0),
-])
-def test_span_forms_on_the_card_match_flat(cuda, shared, form, scans):
-    """chip_smoke 12a-12b at a small size: a busy span of 64 chunks and a
-    ring-down from the same state through each form against the flat
-    single-level chunked form (<= -90 dB), the chunk_scan launches a form
-    makes, and no Toeplitz kernel outside the chunked form."""
-    import dataclasses
-    from openpbso_tpu_torch.runtime.solver import (decay_span_step,
-                                                   step_span)
-    from openpbso_tpu_torch.runtime.state import make_solver_state
-    o, n, s, nb = 6, 200, 64, 64
-    lam, b, v = _modes(o, n, shared)
-    bank = build_modal_bank(lam, b, v, block_size=s, device=cuda)
-    kw = dict(radix=s, num_modes=bank.num_modes, device=cuda)
-    chunked = build_span_tables(lam, nb * s, hetero_superchunk=True, **kw)
-    assert chunked.superchunk == 32 and chunked.shared == shared
-    flat = dataclasses.replace(chunked, s_re=None, s_im=None)
-    tables = (chunked if form == "superchunk" else
-              build_span_tables(lam, nb * s, form=form, **kw))
-    st = make_solver_state(o, bank.num_modes, num_slots=4, device=cuda)
-    rng = np.random.default_rng(8)
-    st.slots.ftype[:, 0] = 2
-    st.slots.width[:, 0] = 9.0
-    st.slots.ftype[:, 1] = 1
-    st.slots.t0[:, 1] = s * (nb // 2)
-    st.slots.space[:, :2] = _randn(rng, o, 2, bank.num_modes, device=cuda)
-    st.z_re[:] = _randn(rng, o, bank.num_modes, device=cuda) * bank.mask
-    gains = torch.ones((o, 2), device=cuda)
-
-    def run(t):
-        busy = step_span(st, bank, t, gains, n_blocks=nb, block_size=s)
-        idle = decay_span_step(st, bank, t, gains, n_blocks=nb,
-                               block_size=s)
-        return [x.cpu() for r in (busy, idle)
-                for x in (r[1], r[0].z_re, r[0].z_im)]
-    ref = run(flat)
-    before = (k1.LAUNCHES, k2.LAUNCHES)
-    got = run(tables)
-    assert (k1.LAUNCHES - before[0], k2.LAUNCHES - before[1]) == (
-        scans, 1 if form == "superchunk" else 0)
-    assert ref[0].abs().max() > 0
-    for g, r in zip(got, ref):
-        assert torch.isfinite(g).all()
-        assert _db(g, r) <= -90
-
-
 # ------------------------------------------------- the span contractions
 
 

@@ -190,7 +190,7 @@ else:
 print("jax" in sys.modules, reference_modules())
 """
 
-_SPAN_FORMS_AND_NATIVE_WITHOUT_JAX = r"""
+_SPAN_AND_NATIVE_WITHOUT_JAX = r"""
 import dataclasses, tempfile
 import numpy as np
 from openpbso_tpu_torch.io import encode_fatcube, maps_match_bits
@@ -218,23 +218,21 @@ space = torch.ones((2, 1, m))
 f = torch.zeros((2, 1, 64 * 32))
 f[:, 0, 0] = 1.0
 outs = []
-for kw in (dict(form="factored"), dict(form="full"), dict(radix=32)):
-    t = build_span_tables(lam64, 64 * 32, num_modes=m, device="cpu", **kw)
+for radix in (32, None):
+    t = build_span_tables(lam64, 64 * 32, radix=radix, num_modes=m,
+                          device="cpu")
     zr, zi, snd = integrate_span(z, z, bank, t, space, f, torch.ones_like(z))
     outs.append(snd)
     assert decay_span(zr, zi, bank, t, torch.ones_like(z))[2].shape == (
         2, 64 * 32)
-assert t.superchunk == 32
-for o in outs[:2]:
-    err = float(((o - outs[2]) ** 2).sum() / (outs[2] ** 2).sum())
-    assert 0 < float((outs[2] ** 2).sum()) and err < 1e-9, err
+assert t.n_chunks == 8
+err = float(((outs[0] - outs[1]) ** 2).sum() / (outs[1] ** 2).sum())
+assert 0 < float((outs[1] ** 2).sum()) and err < 1e-9, err
 sess = ModalSession(bank, config=SolverConfig(block_size=32), lam64=lam64)
 sess.hit(1, np.ones(16))
-assert sess.span_tables_for(1024).superchunk == 1    # the flat form
-sess._span_cache[512] = build_span_tables(lam64, 1024 * 32, radix=512,
-                                          num_modes=m, device="cpu")
 assert np.abs(sess.render_multi(1024, blocks_per_dispatch=1024)).max() > 0
-assert sess.span_tables_for(1024).superchunk == 32
+t = sess.span_tables_for(1024)
+assert (t.chunk, t.n_chunks) == (512, 64) and t.planes is not None
 assert load_native() is not None
 ring = NativeSpscRing(4, (8, 2))
 assert ring.try_push(np.ones((8, 2), np.float32))
@@ -321,16 +319,15 @@ def test_mesh_session_and_ml_run_without_jax_or_sklearn():
 
 
 def test_span_forms_and_native_run_without_jax():
-    """The factored, full and superchunk span forms integrate and ring
-    down (the forms agreeing), a session renders through superchunk
-    tables, and the
-    native library builds, rings and decodes, loading a model: with
-    neither jax nor openpbso_tpu loaded."""
+    """The chunked span integrates and rings down (64 chunks and 8
+    agreeing), a session renders 1024 blocks in one span through its own
+    tables, and the native library builds, rings and decodes, loading a
+    model: with neither jax nor openpbso_tpu loaded."""
     if shutil.which("g++") is None:
         pytest.skip("g++ not on PATH: the native library cannot build")
     proc = subprocess.run(
         [sys.executable, "-c", _DEF_REFERENCE_MODULES
-         + _SPAN_FORMS_AND_NATIVE_WITHOUT_JAX], capture_output=True,
+         + _SPAN_AND_NATIVE_WITHOUT_JAX], capture_output=True,
         text=True, env=_env(), cwd=ROOT, timeout=300)
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.split() == ["False", "none"]

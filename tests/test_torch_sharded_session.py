@@ -8,10 +8,10 @@ port's mesh names "cpu" for each of its cells. The checks this file adds
 hold the port's sharded session against its unsharded one: exactly one
 reduction per span dispatch, a hit routed to the last shard, a batch of
 event writes routed row by row, a checkpoint round trip, and a complex row
-fading to a real one. Spans through
-superchunk and factored tables are held against the JAX package's
-unsharded session, because its sharded one raises on superchunk tables
-(tests/test_torch_sharding.py pins that refusal).
+fading to a real one. Long spans through the port's flat tables are held
+against the JAX package's unsharded session, whose default tables take its
+two-level superchunk scan on a shared bank (its sharded session raises on
+those tables).
 """
 import dataclasses
 import os
@@ -27,12 +27,10 @@ from openpbso_tpu.ops.coeffs import (bank_from_material, build_modal_bank,
                                      lambda_from_modes)
 from openpbso_tpu.parallel import ShardedSession as JSharded
 from openpbso_tpu.parallel import make_mesh as j_make_mesh
-from openpbso_tpu.ops.span import build_span_tables as j_span_tables
 from openpbso_tpu.runtime.session import ModalSession as JSession
 from openpbso_tpu.runtime.solver import SolverConfig as JConfig
 from openpbso_tpu.utils.synth import CERAMIC, synth_mode_data
-from openpbso_tpu_torch.convert import (bank_from_numpy, ffat_from_numpy,
-                                        span_tables_from_numpy)
+from openpbso_tpu_torch.convert import bank_from_numpy, ffat_from_numpy
 from openpbso_tpu_torch.parallel import ShardedSession, make_mesh, sharding
 from openpbso_tpu_torch.runtime.audio import RawCollectorSink
 from openpbso_tpu_torch.runtime.engine import StreamingEngine
@@ -445,43 +443,33 @@ def test_sharded_retuned_sustained_span(dberr):
     assert dberr(a, b) <= -100
 
 
-@pytest.mark.parametrize("form", ["superchunk", "factored"])
-def test_sharded_long_span_matches_unsharded_jax(form, monkeypatch, dberr):
+@pytest.mark.parametrize("layout", ["shared", "hetero"])
+def test_sharded_long_span_matches_unsharded_jax(layout, dberr):
     """A (2, 2) sharded session's busy span and ring-down span against the
     JAX package's unsharded session: 256 blocks of 512-sample chunks (X =
-    64) through superchunk tables (G = 32, the JAX session's default; put
-    in the port session's cache, which it splits on the mode axis), or
-    factored tables of 8 blocks under both sessions."""
-    jbank, lam64 = _bank()
+    64) through the sharded session's own flat tables, split on the mode
+    axis, where the JAX session's default tables carry superchunk powers
+    (G = 32) on the shared bank."""
+    hetero = layout == "hetero"
+    jbank, lam64 = _bank(hetero=hetero)
     kw = dict(num_slots=4, lam64=lam64)
     sh = ShardedSession(_tbank(jbank), _cpu_mesh((2, 2)),
                         config=SolverConfig(block_size=S,
                                             backend="blocked"), **kw)
     ref = JSession(jbank, config=JConfig(block_size=S, backend="blocked"),
                    **kw)
-    nb = 256 if form == "superchunk" else 8
-    if form == "superchunk":
-        sh._span_cache[512] = span_tables_from_numpy(
-            jax.tree.map(np.asarray, ref.span_tables_for(nb)), device="cpu")
-    else:
-        jt = j_span_tables(lam64, nb * S, num_modes=jbank.num_modes,
-                           form="factored")
-        grid = sharding.shard_span_tables(
-            sh.mesh, span_tables_from_numpy(jax.tree.map(np.asarray, jt),
-                                            device="cpu"))
-        monkeypatch.setattr(ref, "span_tables_for", lambda n: jt)
-        monkeypatch.setattr(sh, "_span_tables_sharded", lambda n: grid)
+    nb = 256
     space = np.linspace(0.2, 1.0, 12)
     for s in (sh, ref):
         s.hit(2, space, kind="gaussian", width_us=300.0)
         s.hit(7, -space, when=3 * S)
     busy = [s.render_multi(nb, blocks_per_dispatch=nb) for s in (sh, ref)]
     idle = [s.render_multi(nb, blocks_per_dispatch=nb) for s in (sh, ref)]
-    if form == "superchunk":
-        assert ref.span_tables_for(nb).superchunk == 32
-        (key, grid), = sh._sharded_tables.items()
-        assert key == 512 and not sh._span_cache
-        assert grid[1][1].s_re.shape == (1, 33, 64)
+    assert ref.span_tables_for(nb).superchunk == (1 if hetero else 32)
+    (key, grid), = sh._sharded_tables.items()
+    assert key == 512 and not sh._span_cache
+    assert grid[1][1].b_re.shape == ((4 if hetero else 1), 513, 64)
+    assert grid[1][1].n_chunks == 64 and grid[1][1].planes is not None
     assert np.abs(busy[1]).max() > 0
     assert dberr(*busy) <= -100
     assert dberr(*idle) <= -100

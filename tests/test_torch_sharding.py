@@ -6,8 +6,9 @@ virtual CPU devices); the port's mesh names "cpu" for each of its cells.
 Both start from the same numpy inputs (the JAX bank and state carried
 across by convert.py) and are held to <= -100 dB. Each port step makes
 the reductions its docstring states: two per block, one per span. The
-port's sharded spans through superchunk tables are held against the JAX
-package's unsharded span: its shard_span_tables raises on those tables.
+port's sharded spans through its own flat tables are also held against the
+JAX package's unsharded span, which takes its two-level superchunk scan on
+long shared spans.
 """
 import dataclasses
 
@@ -286,37 +287,30 @@ def test_sharded_span_sound_matches_jax(dberr):
     assert dberr(tsound.numpy(), np.asarray(jsound)) <= -100
 
 
-def _form_tables(bank, form, hetero):
-    """(JAX tables, n_blocks) of one span form on the bank's own
-    eigenvalues, per-object tables for ``hetero`` (_setup's hetero rows
-    share one mode set): 'superchunk' is 64 one-block chunks (G = 32;
-    per-object banks opt in), the others 8 blocks."""
+@pytest.mark.parametrize("n_blocks", [8, 256])
+@pytest.mark.parametrize("layout", ["shared", "hetero"])
+def test_sharded_flat_span_matches_unsharded_jax(layout, n_blocks, dberr):
+    """A sharded span through the port's own flat tables (per-object for
+    ``hetero``), split as the sharded session splits them, on a (4, 2)
+    mesh against the JAX package's
+    unsharded span through its default tables, and the ring-down after
+    it, one reduction per dispatch. At 256 blocks (64 chunks of 512) the
+    JAX package takes its two-level superchunk scan on the shared bank."""
+    from openpbso_tpu_torch.ops import span as ts
+    hetero = layout == "hetero"
+    nb = n_blocks
+    bank, state, gains = _setup(hetero=hetero)
     lam64 = np.asarray(bank.lam_re) + 1j * np.asarray(bank.lam_im)
     kw = dict(num_modes=bank.num_modes, shared=not hetero)
-    if form == "superchunk":
-        jt = build_span_tables(lam64, 64 * S, radix=S,
-                               hetero_superchunk=hetero, **kw)
-        assert jt.superchunk == 32
-    else:
-        jt = build_span_tables(lam64, 8 * S, form=form, **kw)
-    assert jt.shared == (not hetero)
-    return jt, 64 if form == "superchunk" else 8
-
-
-@pytest.mark.parametrize("form,hetero", [
-    ("superchunk", False), ("superchunk", True), ("factored", False),
-    ("factored", True), ("full", False)])
-def test_sharded_span_forms_match_unsharded_jax(form, hetero, dberr):
-    """A sharded span through superchunk, factored and full tables on a
-    (4, 2) mesh against the JAX package's unsharded span (and the ring-down
-    after it), one reduction per dispatch."""
-    bank, state, gains = _setup(hetero=hetero)
-    jtables, nb = _form_tables(bank, form, hetero)
-    jmesh, tmesh = _meshes((4, 2))
-    del jmesh
+    jtables = build_span_tables(lam64, nb * S, **kw)
+    assert jtables.superchunk == (32 if nb == 256 and not hetero else 1)
+    _, tmesh = _meshes((4, 2))
     tbank, tstate, tgains = _port(bank, state, gains, tmesh)
-    ttables = tsh.shard_span_tables(
-        tmesh, span_tables_from_numpy(_np(jtables), device="cpu"))
+    whole = ts.with_planes(ts.build_span_tables(lam64, nb * S, device="cpu",
+                                                **kw))
+    assert (whole.chunk, whole.n_chunks) == (jtables.chunk,
+                                             jtables.n_chunks)
+    ttables = tsh.shard_span_tables(tmesh, whole)
     jst, jmix = jsolver.step_span(state, bank, jtables, gains, n_blocks=nb,
                                   block_size=S, with_sustained=False)
     tsh.REDUCTIONS = 0
@@ -332,28 +326,10 @@ def test_sharded_span_forms_match_unsharded_jax(form, hetero, dberr):
     tst, tmix = tsh.make_sharded_span(tmesh, n_blocks=nb, block_size=S,
                                       decay=True)(tst, tbank, ttables,
                                                   tgains)
+    assert tsh.REDUCTIONS == 2
     assert dberr(tmix.numpy(), np.asarray(jmix)) <= -100
     assert dberr(_gathered(tmesh, tst).z_im.numpy(),
                  np.asarray(jst.z_im)) <= -100
-
-
-@pytest.mark.parametrize("hetero", [False, True])
-def test_superchunk_powers_split_like_the_baby_table(hetero):
-    """Each cell's superchunk powers are the mode slice of the whole (the
-    object rows too for a per-object bank), as its baby table is."""
-    bank, _, _ = _setup(hetero=hetero)
-    jtables, _ = _form_tables(bank, "superchunk", hetero)
-    whole = span_tables_from_numpy(_np(jtables), device="cpu")
-    _, tmesh = _meshes((2, 4))
-    grid = tsh.shard_span_tables(tmesh, whole)
-    o, m = O // 2, whole.b_re.shape[-1] // 4
-    for i, j in np.ndindex(2, 4):
-        cell = grid[i][j]
-        rows = slice(i * o, (i + 1) * o) if hetero else slice(0, 1)
-        assert cell.superchunk == 32 and cell.n_chunks == 64
-        for name in ("b_re", "b_im", "s_re", "s_im"):
-            assert torch.equal(getattr(cell, name), getattr(whole, name)[
-                rows, :, j * m:(j + 1) * m]), name
 
 
 @pytest.mark.parametrize("mesh_shape", [(2, 4), (4, 2)])
@@ -379,30 +355,6 @@ def test_sharded_tables_carry_the_planes_of_each_shard(hetero, mesh_shape):
                                    getattr(own, name)), name
             assert cell.planes.bt_re.shape == (
                 cell.b_re.shape[0], cell.b_re.shape[2], cell.chunk)
-
-
-def test_jax_shard_span_tables_refuses_superchunk_tables():
-    """The JAX package's span_table_specs rebuilds ChunkSpanTables without
-    s_re/s_im, so its shard_span_tables raises TypeError on superchunk
-    tables (X >= 64 on a shared bank), while the same tables without the
-    powers, and tables of X = 8, shard. The port shards all three."""
-    md = synth_mode_data(24, 6, seed=9)
-    lam64, _, _ = lambda_from_modes(CERAMIC.density, md.omega_squared,
-                                    CERAMIC.alpha, CERAMIC.beta)
-    jmesh, tmesh = jsh.make_mesh(2, 2), tsh.make_mesh(
-        2, 2, devices=["cpu"] * 4)
-    jt = build_span_tables(lam64, 64 * 64, radix=64)
-    assert jt.superchunk == 32
-    with pytest.raises(TypeError):
-        jsh.shard_span_tables(jmesh, jt)
-    flat = dataclasses.replace(jt, s_re=None, s_im=None)
-    short = build_span_tables(lam64, 8 * 64, radix=64)
-    assert short.superchunk == 1
-    for ok in (flat, short):
-        jsh.shard_span_tables(jmesh, ok)
-    grid = tsh.shard_span_tables(tmesh, span_tables_from_numpy(
-        _np(jt), device="cpu"))
-    assert grid[1][1].superchunk == 32
 
 
 @pytest.mark.parametrize("mesh_shape", [(4, 2), (2, 4)])

@@ -1,6 +1,8 @@
-"""Port parity: the span in all three forms (openpbso_tpu_torch.ops.span:
-chunked with and without superchunk powers, factored, full), its kernels'
-plain twins, and the span entries of the solver and the session.
+"""Port parity: the chunked span (openpbso_tpu_torch.ops.span, the port's
+one span form), its kernels' plain twins, and the span entries of the
+solver and the session. Where the JAX package takes its two-level
+superchunk scan (shared spans of 64 or more chunks), the port's flat scan
+is held against it.
 
 The same numpy inputs, made from a seed, go through the JAX package and the
 port; banks and span tables are built in the JAX package and carried across
@@ -81,9 +83,10 @@ def banks():
 
 
 def _radix(n_blocks):
-    """nb=64 uses one-block chunks (X = 64), which puts the JAX package's
-    shared tables on its superchunk path; the others take choose_radix."""
-    return S if n_blocks == 64 else None
+    """nb >= 64 uses one-block chunks (X = nb), which puts the JAX
+    package's shared tables on its superchunk path (the port's stay flat);
+    the others take choose_radix."""
+    return S if n_blocks >= 64 else None
 
 
 def _tables(lam64, bank, n_blocks):
@@ -147,103 +150,76 @@ def test_span_tables_bitwise_equal_jax(banks, layout, n_blocks):
     assert tt.shared == jt.shared == (layout == "shared")
     assert (tt.chunk, tt.n_chunks, tt.span) == (jt.chunk, jt.n_chunks,
                                                 n_blocks * S)
-    assert tt.superchunk == jt.superchunk
+    # JAX's shared tables of 64 chunks carry superchunk powers
+    assert (jt.s_re is not None) == (layout == "shared" and n_blocks == 64)
     _assert_tables_bitwise(tt, jt)
 
 
 def _assert_tables_bitwise(tt, jt):
-    """Every table of the port's tables bitwise the JAX tables' (None
-    where JAX's is None), and convert.py carries JAX's across unchanged.
-    The port's chunk tables also have ``planes`` (the kernels' layout,
-    made where the tables are used), which neither builder attaches."""
-    assert type(tt).__name__ == type(jt).__name__
+    """The port's baby table bitwise the JAX table's, the same chunk and
+    chunk count, and convert.py carries JAX's across as the port's flat
+    tables, any superchunk powers dropped. The port's tables also have
+    ``planes`` (the kernels' layout, made where the tables are used),
+    which neither builder attaches."""
     conv = span_tables_from_numpy(_np(jt), device="cpu")
-    assert type(conv) is type(tt)
-    for f in dataclasses.fields(tt):
-        if f.name == "planes":
-            assert tt.planes is None and conv.planes is None
-            assert not hasattr(jt, "planes")
-            continue
-        got, ref = getattr(tt, f.name), getattr(jt, f.name)
-        if not isinstance(got, torch.Tensor):
-            assert got == ref == getattr(conv, f.name), f.name
-            continue
+    assert type(tt) is type(conv) is ts.ChunkSpanTables
+    assert [f.name for f in dataclasses.fields(conv)] == [
+        "b_re", "b_im", "n_chunks", "planes"]
+    assert tt.planes is None and conv.planes is None
+    assert not hasattr(jt, "planes")
+    assert (tt.chunk, tt.n_chunks) == (jt.chunk, jt.n_chunks) == (
+        conv.chunk, conv.n_chunks)
+    for name in ("b_re", "b_im"):
+        got = getattr(tt, name)
         assert got.dtype == torch.float32
-        np.testing.assert_array_equal(got.numpy(), np.asarray(ref))
-        assert torch.equal(getattr(conv, f.name), got)
+        np.testing.assert_array_equal(got.numpy(), np.asarray(getattr(jt,
+                                                                      name)))
+        assert torch.equal(getattr(conv, name), got)
 
 
-FORM_CASES = [("hetero", "chunked"), ("hetero", "factored"),
-              ("shared", "chunked"), ("shared", "factored"),
-              ("shared", "full")]
-
-
-@pytest.mark.parametrize("form", ["factored", "full"])
-def test_other_span_forms_are_refused(banks, form, dberr):
-    """Once refused by the port, the factored and full forms now build:
-    bitwise JAX's tables, and one span through them at <= -100 dB."""
-    jbank, tbank, lam64 = banks["shared"]
-    kw = dict(num_modes=tbank.num_modes, form=form)
-    jt = js.build_span_tables(lam64, 8 * S, **kw)
-    tt = ts.build_span_tables(lam64, 8 * S, device="cpu", **kw)
-    assert isinstance(tt, {"factored": ts.SpanTables,
-                           "full": ts.FullSpanTables}[form])
-    assert tt.span == jt.span == 8 * S and tt.shared
-    _assert_tables_bitwise(tt, jt)
-    j_st, t_st = _seeded_state(jbank, 8)
-    jg, tg = _gains(j_st)
-    _, j_mix = jsolver.step_span(j_st, jbank, jt, jg, n_blocks=8,
-                                 block_size=S, with_sustained=False)
-    _, t_mix = tsolver.step_span(t_st, tbank, tt, tg, n_blocks=8,
-                                 block_size=S)
-    assert dberr(t_mix.numpy(), np.asarray(j_mix)) <= -100
-
-
-@pytest.mark.parametrize("layout,form", FORM_CASES)
+@pytest.mark.parametrize("layout,form", [("hetero", "chunked"),
+                                         ("shared", "chunked")])
 def test_form_tables_bitwise_equal_jax(banks, layout, form):
+    """The JAX package's tables asked for by name as its chunked form are
+    the port's tables, bitwise."""
     jbank, _, lam64 = banks[layout]
-    kw = dict(num_modes=jbank.num_modes, form=form)
+    kw = dict(num_modes=jbank.num_modes)
     _assert_tables_bitwise(
         ts.build_span_tables(lam64, 8 * S, device="cpu", **kw),
-        js.build_span_tables(lam64, 8 * S, **kw))
+        js.build_span_tables(lam64, 8 * S, form=form, **kw))
 
 
-def test_full_table_built_in_pieces_is_bitwise_one_piece(banks,
-                                                         monkeypatch):
-    """The full table's host build in pieces of powers gives the values of
-    the JAX package's one-call build, bitwise, across piece edges."""
-    jbank, _, lam64 = banks["shared"]
-    monkeypatch.setattr(ts, "FULL_TABLE_PIECE", 7)
-    tt = ts.build_span_tables(lam64, 4 * S, num_modes=jbank.num_modes,
-                              form="full", device="cpu")
-    _assert_tables_bitwise(tt, js.build_span_tables(
-        lam64, 4 * S, num_modes=jbank.num_modes, form="full"))
-
-
-def test_full_form_refuses_a_per_object_bank(banks):
-    _, tbank, lam64 = banks["hetero"]
-    with pytest.raises(ValueError, match="need a shared bank"):
-        ts.build_span_tables(lam64, 2 * S, num_modes=tbank.num_modes,
-                             form="full", device="cpu")
-    with pytest.raises(ValueError, match="unknown span form"):
-        ts.build_span_tables(lam64, 2 * S, num_modes=tbank.num_modes,
-                             form="blocked", device="cpu")
-
-
-@pytest.mark.parametrize("n_chunks,shared,opt_in,want", [
-    (63, True, False, 1), (64, True, False, 32), (512, True, False, 32),
-    (96, True, False, 32), (80, True, False, 20), (67, True, False, 1),
-    (64, False, False, 1), (64, False, True, 32), (8, True, True, 1)])
-def test_superchunk_group_is_jax_rule(banks, n_chunks, shared, opt_in, want):
-    """The default group G: the largest divisor of X up to 32 once
-    X >= 64, for shared banks and per-object banks that opt in; the
-    tables bitwise JAX's."""
-    _, tbank, lam64 = banks["shared" if shared else "hetero"]
-    kw = dict(radix=8, hetero_superchunk=opt_in)
-    tt = ts.build_span_tables(lam64, n_chunks * 8, device="cpu", **kw)
-    jt = js.build_span_tables(lam64, n_chunks * 8, **kw)
-    assert tt.superchunk == jt.superchunk == want
-    _assert_tables_bitwise(tt, jt)
+@pytest.mark.parametrize("case", ["shared", "hetero", "factored", "full"])
+def test_span_tables_from_numpy(banks, case, dberr):
+    """JAX chunked tables with superchunk powers (64 one-block chunks,
+    G = 32; per-object banks opt in) convert to the port's flat tables,
+    which integrate a span as the JAX package's two-level scan does
+    (<= -100 dB); its factored and full tables raise."""
+    layout = "hetero" if case == "hetero" else "shared"
+    jbank, tbank, lam64 = banks[layout]
+    if case in ("factored", "full"):
+        jt = js.build_span_tables(lam64, 8 * S, num_modes=jbank.num_modes,
+                                  form=case)
+        with pytest.raises(ValueError, match="only the chunked span form"):
+            span_tables_from_numpy(_np(jt), device="cpu")
+        return
+    n_blocks = 64
+    jt = js.build_span_tables(lam64, n_blocks * S, num_modes=jbank.num_modes,
+                              radix=S, hetero_superchunk=True)
+    assert jt.superchunk == 32
+    tt = span_tables_from_numpy(_np(jt), device="cpu")
+    assert (tt.chunk, tt.n_chunks) == (S, n_blocks)
+    j_st, t_st = _seeded_state(jbank, n_blocks)
+    jg, tg = _gains(j_st)
+    j_st, j_mix = jsolver.step_span(j_st, jbank, jt, jg, n_blocks=n_blocks,
+                                    block_size=S, with_sustained=False)
+    t_st, t_mix = tsolver.step_span(t_st, tbank, tt, tg, n_blocks=n_blocks,
+                                    block_size=S)
+    assert np.abs(np.asarray(j_mix)).max() > 0
+    assert dberr(t_mix.numpy(), np.asarray(j_mix)) <= -100
+    for name in ("z_re", "z_im"):
+        assert dberr(getattr(t_st, name).numpy(),
+                     np.asarray(getattr(j_st, name))) <= -100
 
 
 def test_integrate_span_refuses_tables_of_another_length(banks):
@@ -383,14 +359,16 @@ def test_kernel_wrappers_refuse_other_devices():
 # -------------------------------------------------------- span vs JAX
 
 
-@pytest.mark.parametrize("n_blocks", [1, 8, 64])
+@pytest.mark.parametrize("n_blocks", [1, 4, 8, 64, 256])
 @pytest.mark.parametrize("layout", LAYOUTS)
 def test_step_span_and_decay_match_jax(banks, layout, n_blocks, dberr):
+    """The busy span and a ring-down through both packages; shared spans
+    of 64 and 256 one-block chunks take the JAX package's two-level scan
+    and the port's flat one."""
     jbank, tbank, lam64 = banks[layout]
     jt, tt = _tables(lam64, jbank, n_blocks)
-    # shared nb=64 takes both packages' two-level scan
-    assert tt.superchunk == jt.superchunk == (
-        32 if layout == "shared" and n_blocks == 64 else 1)
+    assert jt.superchunk == (32 if layout == "shared" and n_blocks >= 64
+                             else 1)
     j_st, t_st = _seeded_state(jbank, n_blocks)
     jg, tg = _gains(j_st)
     j_st, j_mix = jsolver.step_span(j_st, jbank, jt, jg, n_blocks=n_blocks,
@@ -414,13 +392,14 @@ def test_step_span_and_decay_match_jax(banks, layout, n_blocks, dberr):
     assert t_st.block_start == int(np.asarray(j_st.block_start))
 
 
+@pytest.mark.parametrize("n_blocks", [1, 4, 64])
 @pytest.mark.parametrize("rows", ["listeners", "complex"])
 @pytest.mark.parametrize("layout", LAYOUTS)
-def test_integrate_span_rows_match_jax(banks, layout, rows, dberr):
+def test_integrate_span_rows_match_jax(banks, layout, rows, n_blocks, dberr):
     """[L=3, O, M] listener rows (sound [O, L, N]) and complex rows, through
-    integrate_span and decay_span."""
+    integrate_span and decay_span: the live one- and four-block spans and
+    64 one-block chunks."""
     jbank, tbank, lam64 = banks[layout]
-    n_blocks = 4
     jt, tt = _tables(lam64, jbank, n_blocks)
     j_st, t_st = _seeded_state(jbank, n_blocks, rows=rows)
     j_fk, j_sp = jf.force_span(j_st.slots, j_st.block_start, n_blocks * S, S)
@@ -446,14 +425,17 @@ def test_integrate_span_rows_match_jax(banks, layout, rows, dberr):
                  np.asarray(jsolver._mixdown_span(ref[2], jg))) <= -100
 
 
-@pytest.mark.parametrize("layout,form", FORM_CASES)
+@pytest.mark.parametrize("layout,form", [("hetero", "chunked"),
+                                         ("shared", "chunked")])
 def test_span_forms_match_jax(banks, layout, form, dberr):
-    """tests/test_span.py's (layout, form) cases through both packages'
-    step_span and decay_span_step: mix and state <= -100 dB."""
+    """tests/test_span.py's chunked (layout, form) cases: the JAX
+    package's tables asked for by name, the port's built by default,
+    through both packages' step_span and decay_span_step: mix and state
+    <= -100 dB."""
     jbank, tbank, lam64 = banks[layout]
     n_blocks = 8
-    kw = dict(num_modes=jbank.num_modes, form=form)
-    jt = js.build_span_tables(lam64, n_blocks * S, **kw)
+    kw = dict(num_modes=jbank.num_modes)
+    jt = js.build_span_tables(lam64, n_blocks * S, form=form, **kw)
     tt = ts.build_span_tables(lam64, n_blocks * S, device="cpu", **kw)
     assert tt.shared == jt.shared == (layout == "shared")
     j_st, t_st = _seeded_state(jbank, n_blocks)
@@ -477,148 +459,38 @@ def test_span_forms_match_jax(banks, layout, form, dberr):
                      np.asarray(getattr(j_st, name))) <= -100
 
 
-@pytest.mark.parametrize("layout,form,n_blocks", [
-    *((layout, form, 4) for layout, form in FORM_CASES),
-    ("shared", "chunked", 64)])
-def test_decay_span_equals_zero_excitation(banks, layout, form, n_blocks):
-    """Zero excitation: decay_span is integrate_span, bitwise, in every
-    form (as tests/test_span.py holds the JAX package's); shared nb=64
-    takes the two-level scan."""
+@pytest.mark.parametrize("n_blocks", [1, 4, 64])
+@pytest.mark.parametrize("layout", LAYOUTS)
+@pytest.mark.parametrize("rows", ["real", "listeners", "complex"])
+def test_decay_span_equals_zero_excitation(banks, rows, layout, n_blocks):
+    """Zero excitation: decay_span is integrate_span, bitwise (as
+    tests/test_span.py holds the JAX package's), on real rows, [L=3, O, M]
+    listener rows and [L=2, O, M] complex rows (the ring-down of a
+    binaural scene's two ears); nb=64 is 64 one-block chunks."""
     _, tbank, lam64 = banks[layout]
     n = n_blocks * S
     tt = ts.build_span_tables(lam64, n, num_modes=tbank.num_modes,
-                              form=form, radix=S if n_blocks == 64 else None,
-                              device="cpu")
-    assert getattr(tt, "superchunk", 1) == (32 if n_blocks == 64 else 1)
+                              radix=_radix(n_blocks), device="cpu")
     o, m = tbank.num_objects, tbank.num_modes
     rng = np.random.default_rng(5)
     mask = tbank.mask.numpy()
     z_re, z_im = (torch.from_numpy(
         (rng.standard_normal((o, m)) * mask).astype(np.float32))
         for _ in range(2))
-    transfer = torch.from_numpy(rng.uniform(0.5, 2.0, (o, m)).astype(
+    shape = {"real": (o, m), "listeners": (3, o, m),
+             "complex": (2, o, m)}[rows]
+    transfer = torch.from_numpy(rng.uniform(0.5, 2.0, shape).astype(
         np.float32))
+    transfer_im = (torch.from_numpy(rng.uniform(-1.0, 1.0, shape).astype(
+        np.float32)) if rows == "complex" else None)
     full = ts.integrate_span(z_re, z_im, tbank, tt, torch.zeros((o, 1, m)),
-                             torch.zeros((o, 1, n)), transfer)
-    dec = ts.decay_span(z_re, z_im, tbank, tt, transfer)
+                             torch.zeros((o, 1, n)), transfer, transfer_im)
+    dec = ts.decay_span(z_re, z_im, tbank, tt, transfer, transfer_im)
+    assert dec[2].shape == ((o, n) if rows == "real" else
+                            (o, shape[0], n))
+    assert dec[2].abs().max() > 0
     for a, b in zip(full, dec):
         assert torch.equal(a, b)
-
-
-@pytest.mark.parametrize("form", ["factored", "full"])
-@pytest.mark.parametrize("rows", ["listeners", "complex"])
-def test_factored_and_full_refuse_listener_and_complex_rows(banks, form,
-                                                           rows):
-    jbank, tbank, lam64 = banks["shared"]
-    tt = ts.build_span_tables(lam64, 2 * S, num_modes=tbank.num_modes,
-                              form=form, device="cpu")
-    _, st = _seeded_state(jbank, 2, rows=rows)
-    fk, sp = tf.force_span(st.slots, st.block_start, 2 * S, S)
-    match = ("multi-listener" if rows == "listeners" else "complex") + \
-        " transfer rows need the chunked"
-    with pytest.raises(ValueError, match=match):
-        ts.integrate_span(st.z_re, st.z_im, tbank, tt, sp, fk, st.transfer,
-                          transfer_im=st.transfer_im)
-    with pytest.raises(ValueError, match=match):
-        ts.decay_span(st.z_re, st.z_im, tbank, tt, st.transfer,
-                      transfer_im=st.transfer_im)
-
-
-@pytest.mark.parametrize("layout", LAYOUTS)
-def test_superchunk_hierarchy_matches_jax(banks, layout, dberr):
-    """tests/test_span.py's superchunk case through both packages: 64
-    one-block chunks (G = 32; per-object banks opt in), with excitation
-    and the sustained channel, then a ring-down, <= -100 dB against the
-    JAX package; the superchunk powers bitwise JAX's; and the port's
-    two-level scan against its own flat one."""
-    from openpbso_tpu.ops.forces import ar_impulse_g
-    jbank, tbank, lam64 = banks[layout]
-    n_blocks = 64
-    kw = dict(num_modes=jbank.num_modes, radix=S)
-    if layout == "hetero":
-        assert ts.build_span_tables(lam64, n_blocks * S, device="cpu",
-                                    **kw).superchunk == 1
-        kw["hetero_superchunk"] = True
-    jt = js.build_span_tables(lam64, n_blocks * S, **kw)
-    tt = ts.build_span_tables(lam64, n_blocks * S, device="cpu", **kw)
-    assert tt.superchunk == jt.superchunk == 32
-    _assert_tables_bitwise(tt, jt)
-    flat = dataclasses.replace(tt, s_re=None, s_im=None)
-
-    j_st, _ = _seeded_state(jbank, n_blocks)
-    sus = j_st.sustained
-    j_st = dataclasses.replace(j_st, sustained=dataclasses.replace(
-        sus, active=sus.active.at[2].set(True),
-        space=sus.space.at[2, :4].set(1.0)))
-    t_st = state_from_numpy(_np(j_st), device="cpu")
-    jg, tg = _gains(j_st)
-    g = ar_impulse_g((0.783, 0.116), S)
-    j_out, j_mix = jsolver.step_span(
-        j_st, jbank, jt, jg, n_blocks=n_blocks, block_size=S,
-        with_sustained=True, ar_g=jnp.asarray(g, jnp.float32))
-    outs = [tsolver.step_span(t_st, tbank, tables, tg, n_blocks=n_blocks,
-                              block_size=S, with_sustained=True,
-                              ar_g=torch.as_tensor(g).float())
-            for tables in (tt, flat)]
-    for t_out, t_mix in outs:
-        assert dberr(t_mix.numpy(), np.asarray(j_mix)) <= -100
-        assert dberr(t_out.z_re.numpy(), np.asarray(j_out.z_re)) <= -100
-        assert dberr(t_out.sustained.ar_hist.numpy(),
-                     np.asarray(j_out.sustained.ar_hist)) <= -100
-    assert dberr(outs[0][1].numpy(), outs[1][1].numpy()) <= -100
-
-    # ring-down from a random state
-    rng = np.random.default_rng(3)
-    z = rng.standard_normal((2,) + tuple(j_st.z_re.shape)).astype(np.float32)
-    ref = js.decay_span(jnp.asarray(z[0]), jnp.asarray(z[1]), jbank, jt,
-                        j_st.transfer)
-    for tables in (tt, flat):
-        got = ts.decay_span(torch.from_numpy(z[0]), torch.from_numpy(z[1]),
-                            tbank, tables, t_st.transfer)
-        for a, b in zip(got, ref):
-            assert dberr(a.numpy(), np.asarray(b)) <= -100
-
-
-@pytest.mark.parametrize("decay", [False, True])
-@pytest.mark.parametrize("layout", LAYOUTS)
-def test_superchunk_passes_run_through_chunk_scan(banks, layout, decay,
-                                                  monkeypatch, dberr):
-    """Every serial pass of the two-level scan is a chunk_scan call: the
-    group scan (rotation lam^(GC)), and for per-object banks passes A and
-    C (rotation lam^C over [O * X/G, M] rows); each call's result is the
-    JAX package's two-level scan's."""
-    jbank, tbank, lam64 = banks[layout]
-    kw = dict(num_modes=jbank.num_modes, radix=S // 2,
-              hetero_superchunk=True)
-    jt = js.build_span_tables(lam64, 64 * S // 2, **kw)
-    tt = ts.build_span_tables(lam64, 64 * S // 2, device="cpu", **kw)
-    assert tt.superchunk == 32 and tt.n_chunks == 64
-    calls = []
-    real = ts.chunk_scan
-
-    def counted(z_re, z_im, pc_re, pc_im, n_chunks, inj_re=None,
-                inj_im=None):
-        calls.append((tuple(z_re.shape), n_chunks))
-        return real(z_re, z_im, pc_re, pc_im, n_chunks, inj_re, inj_im)
-    monkeypatch.setattr(ts, "chunk_scan", counted)
-    z, inj = _scan_inputs(tt, decay)
-    ref = js._chunk_start_states(
-        jnp.asarray(z[0]), jnp.asarray(z[1]),
-        None if decay else jnp.asarray(inj[0]),
-        None if decay else jnp.asarray(inj[1]), jt)
-    got = ts._chunk_start_states(
-        torch.from_numpy(z[0]), torch.from_numpy(z[1]),
-        None if decay else torch.from_numpy(inj[0]),
-        None if decay else torch.from_numpy(inj[1]), tt)
-    m = tbank.num_modes
-    group = ((O, m), 2)
-    passes = [((O * 2, m), 32)]
-    want = ([group] if decay or layout == "shared"
-            else passes + [group] + passes)
-    assert calls == want
-    for g, r in zip(got, ref):
-        assert g.shape == r.shape
-        assert dberr(g.numpy(), np.asarray(r)) <= -120
 
 
 # ------------------------------------------------ span vs the port itself
@@ -820,15 +692,14 @@ def test_session_takes_flat_tables_where_jax_takes_superchunk(
     build_span_tables' default (superchunk G = 32 for a shared bank), the
     port's session the flat form (measured faster on the card), with the
     same baby table bitwise; both render the span and a ring-down within
-    -100 dB. Superchunk tables put in the port session's cache are used
-    as they are."""
+    -100 dB."""
     jbank, tbank, lam64 = banks[layout]
     nb = 512
     sessions = [TSession(tbank, config=TConfig(block_size=S), lam64=lam64),
                 JSession(jbank, config=JConfig(block_size=S), lam64=lam64)]
     ours, theirs = (s.span_tables_for(nb) for s in sessions)
-    assert (ours.chunk, ours.n_chunks, ours.superchunk) == (512, 64, 1)
-    assert theirs.superchunk == (32 if layout == "shared" else 1)
+    assert (ours.chunk, ours.n_chunks) == (theirs.chunk, theirs.n_chunks) \
+        == (512, 64)
     np.testing.assert_array_equal(ours.b_re.numpy(), np.asarray(theirs.b_re))
     rng = np.random.default_rng(6)
     for sess in sessions:
@@ -838,12 +709,6 @@ def test_session_takes_flat_tables_where_jax_takes_superchunk(
                 for s in sessions)
     assert np.abs(ref).max() > 0
     assert dberr(got, ref) <= -100
-    if layout == "shared":
-        sess = TSession(tbank, config=TConfig(block_size=S), lam64=lam64)
-        sess._span_cache[512] = ts.build_span_tables(
-            lam64, nb * S, radix=512, num_modes=tbank.num_modes,
-            device="cpu")
-        assert sess.span_tables_for(nb).superchunk == 32
 
 
 def test_session_accepts_lam64(banks):
