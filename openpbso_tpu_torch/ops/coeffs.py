@@ -10,12 +10,61 @@ device only sees exact float32 casts of the float64 tables.
 from __future__ import annotations
 
 import dataclasses
+import itertools
+import threading
 
 import numpy as np
 import torch
 
 from ..config import MODAL_GAIN, SAMPLE_RATE
 from ..device import resolve_device
+
+
+class TableCache:
+    """Device tables keyed by what they were built from, least recently
+    used dropped first to keep the bytes held within a bound: the span and
+    AR impulse tables of the sessions on one bank
+    (runtime/session.py::ModalSession.span_tables_for, ar_span_table).
+    The tables are shared and read-only. A hit takes no lock; two threads
+    that miss on one key both build, and the cache keeps one of the two
+    equal tables."""
+
+    def __init__(self):
+        self._entries: dict = {}      # key -> [table, bytes, last use]
+        self._uses = itertools.count()
+        self._lock = threading.Lock()  # for puts and evictions only
+
+    def __len__(self) -> int:
+        return len(self._entries)
+
+    @property
+    def nbytes(self) -> int:
+        """The bytes the cache holds."""
+        return sum(e[1] for e in list(self._entries.values()))
+
+    def get(self, key):
+        """The table kept under ``key``, or None."""
+        entry = self._entries.get(key)
+        if entry is None:
+            return None
+        entry[2] = next(self._uses)
+        return entry[0]
+
+    def put(self, key, table, nbytes: int, budget: int) -> None:
+        """Keep ``table`` (``nbytes`` bytes) under ``key``, then drop the
+        least recently used tables until at most ``budget`` bytes are
+        held; a table larger than ``budget`` is not kept."""
+        if nbytes > budget:
+            return
+        with self._lock:
+            self._entries[key] = [table, nbytes, next(self._uses)]
+            held = self.nbytes
+            for old, entry in sorted(self._entries.items(),
+                                     key=lambda kv: kv[1][2]):
+                if held <= budget:
+                    break
+                del self._entries[old]
+                held -= entry[1]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -38,6 +87,10 @@ class ModalBank:
     # built once per (bank, chunk) by chunk_tables()
     _chunk_cache: dict = dataclasses.field(default_factory=dict, init=False,
                                            repr=False, compare=False)
+    # the span and AR tables of every session on this bank, which a new
+    # session takes in place of building its own (runtime/session.py)
+    table_cache: TableCache = dataclasses.field(
+        default_factory=TableCache, init=False, repr=False, compare=False)
 
     @property
     def num_objects(self) -> int:

@@ -66,6 +66,11 @@ class ShardedSession(ModalSession):
     refused (the JAX package's sharded session refuses the scan and its
     Pallas kernel alike)."""
 
+    # nothing goes into the bank's table cache: the bank is a shape-only
+    # copy of the session's own, and the unsharded span tables are dropped
+    # once split (_span_tables_sharded), so that only the shards stay
+    TABLE_CACHE_BYTES = 0
+
     def __init__(self, bank: ModalBank, mesh: Mesh, ffat=None, config=None,
                  num_slots: int = 16, seed: int = 0,
                  dtype: torch.dtype = torch.float32,

@@ -41,7 +41,8 @@ NAMES = ("engine.dispatch", "engine.apply", "engine.synth", "engine.copy",
 (DISPATCH, APPLY, SYNTH, COPY, SPAN, TABLES, BAKE, SCHEDULE, LOOKUP,
  ITD) = range(10)
 COUNTERS = {DISPATCH: ("blocks",), APPLY: ("events",), SYNTH: ("blocks",),
-            SPAN: ("K", "live"), SCHEDULE: ("events", "writes"),
+            SPAN: ("K", "live"), TABLES: ("bank",),
+            SCHEDULE: ("events", "writes"),
             LOOKUP: ("L", "compressed"), ITD: ("L", "M")}
 
 # a ring of this many spans holds the set-up and a 30 s window of the

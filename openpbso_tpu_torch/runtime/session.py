@@ -37,6 +37,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import hashlib
 
 import numpy as np
 import torch
@@ -114,6 +115,12 @@ class ModalSession:
         self.device = bank.device
         self._lam64 = (None if lam64 is None
                        else np.atleast_2d(np.asarray(lam64, np.complex128)))
+        # what the bank's table cache knows these eigenvalues by: their
+        # bytes, so that sessions on one bank from other eigenvalues never
+        # share span tables
+        self._lam_key = (None if self._lam64 is None else (
+            self._lam64.shape,
+            hashlib.blake2b(self._lam64.tobytes(), digest_size=16).digest()))
         self._span_cache: dict[int, object] = {}   # chunk size -> tables
         o, m = bank.num_objects, bank.num_modes
         # the sustained channel's noise is a pure function of (per-object
@@ -621,23 +628,35 @@ class ModalSession:
         Cached tables carry their SpanPlanes (ops/span.py::with_planes),
         the layout the contraction kernels read, made once per cached
         table: tables put in the cache without them get them at their
-        first use here. A build, of either, is the span
-        ``session.tables``."""
+        first use here. A chunk size missing from the session's cache is
+        taken from the bank's table cache, which every session on the bank
+        shares, and built there only when the bank has none. Each miss of
+        the session's cache is the span ``session.tables``, its counter 1
+        when the bank's cache served the tables."""
         if self._lam64 is None:
             return None
         span = n_blocks * self.config.block_size
         chunk = choose_radix(span)
         tables = self._span_cache.get(chunk)
-        if tables is None or tables.planes is None:
+        if tables is None or (tables.planes is None
+                              and tables.b_re.dtype == torch.float32):
             tok = profiling.begin(profiling.TABLES)
+            hit = False
             if tables is None:
-                tables = build_span_tables(
-                    self._lam64, chunk, radix=chunk,
-                    num_modes=self.bank.num_modes, dtype=self._dtype,
-                    device=self.device)
-            tables = with_planes(tables)
+                key = ("span", self._lam_key, chunk, self._dtype,
+                       self.device)
+                tables = self.bank.table_cache.get(key)
+                hit = tables is not None
+                if not hit:
+                    tables = with_planes(build_span_tables(
+                        self._lam64, chunk, radix=chunk,
+                        num_modes=self.bank.num_modes, dtype=self._dtype,
+                        device=self.device))
+                    self._share_table(key, tables)
+            else:
+                tables = with_planes(tables)
             self._span_cache[chunk] = tables
-            profiling.end(tok)
+            profiling.end(tok, int(hit))
         return dataclasses.replace(tables, n_chunks=span // chunk)
 
     def _span_bucket(self, with_sustained: bool) -> int | None:
@@ -676,8 +695,11 @@ class ModalSession:
         from the host AR mirror: Og = 1 while every object shares one
         tuning. Cached until a retune of ``a``. ``force_per_object`` builds
         the [O, ...] layout even for uniform tunings: warmup runs the
-        retuned-drag span with it before any retune happens. A build is
-        the span ``session.tables``."""
+        retuned-drag span with it before any retune happens. A miss of the
+        session's cache is taken from the bank's table cache, keyed on the
+        tuning's rows, and built there only when the bank has none: the
+        span ``session.tables``, its counter 1 when the bank's cache
+        served the table."""
         a = self._ar_host
         shared = bool((a == a[:1]).all()) and not force_per_object
         cap = (self.AR_GROUP_CAP_SHARED if shared
@@ -686,12 +708,41 @@ class ModalSession:
         tbl = self._ar_g.get((length, shared))
         if tbl is None:
             tok = profiling.begin(profiling.TABLES)
-            tbl = torch.as_tensor(
-                ar_impulse_g(a[:1] if shared else a, length)).to(
+            rows = a[:1] if shared else a
+            key = ("ar", rows.shape, rows.tobytes(), length, shared,
+                   self._dtype, self.device)
+            tbl = self.bank.table_cache.get(key)
+            hit = tbl is not None
+            if not hit:
+                tbl = torch.as_tensor(ar_impulse_g(rows, length)).to(
                     self._dtype).to(self.device)
+                self._share_table(key, tbl)
             self._ar_g[(length, shared)] = tbl
-            profiling.end(tok)
+            profiling.end(tok, int(hit))
         return tbl
+
+    # what the bank's table cache may hold, across the sessions on it: a
+    # table outlives its session there so that the next session on the
+    # bank (a bake's, a served scene's grown bucket) takes it in place of
+    # a host float64 build. A shared scene's whole set, every chunk size
+    # and AR length a bake or warmup takes, is ~0.11 GB at 1024 modes; a
+    # per-object scene's tables with their planes are ~0.54 GB (one-block
+    # chunks) to ~4.3 GB (512-sample chunks) at 256 objects, so those of
+    # longer chunks stay with their session, as before, and do not pile
+    # up on the card across chunk sizes after it has gone.
+    TABLE_CACHE_BYTES = 1 << 30
+
+    def _share_table(self, key, table) -> None:
+        """Put a table this session built into the bank's cache."""
+        if isinstance(table, torch.Tensor):
+            tensors = (table,)
+        else:
+            tensors = (table.b_re, table.b_im) + (
+                () if table.planes is None else
+                tuple(vars(table.planes).values()))
+        self.bank.table_cache.put(key, table,
+                                  sum(t.nbytes for t in tensors),
+                                  self.TABLE_CACHE_BYTES)
 
     # force_span materialises [O, K, N]-shaped intermediates (per-slot
     # profiles, membership, f_k): cap K*N*O so a full 16-slot table on a

@@ -659,10 +659,15 @@ def test_session_builds_and_caches_span_tables(session_assets):
 
 def test_session_builds_span_planes_once_per_chunk(session_assets):
     """The session's cached tables carry their SpanPlanes, built once per
-    chunk size: spans of 4 and 2 blocks share one build, 16 blocks take
-    another; tables put in the cache without planes get them at their
-    first use, once."""
-    sess = _t_session(session_assets)
+    chunk size on a bank: spans of 4 and 2 blocks share one build, 16
+    blocks take another; tables put in the cache without planes get them
+    at their first use, once."""
+    _, tbank, lam, _, tffat = session_assets
+    # a bank of its own: the sessions of this module share the fixture's
+    # bank, and its table cache with it
+    sess = TSession(dataclasses.replace(tbank), tffat,
+                    TConfig(block_size=S), lam64=lam)
+    _script(sess)
     before = ts.PLANE_BUILDS
     tables = sess.span_tables_for(4)
     assert ts.PLANE_BUILDS == before + 1
